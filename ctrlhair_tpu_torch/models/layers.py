@@ -1,0 +1,378 @@
+# Neural building blocks (torch.nn, NCHW inside).
+#
+# Port of ctrlhair_tpu/models/layers.py.  Every module that owns weights is
+# named after its flax counterpart, so a flax parameter path maps onto a
+# torch attribute path (see convert.py).  Activations run in the module's
+# compute dtype (bfloat16 by default at inference): inputs, weights and
+# biases are cast to it at each layer, as flax does, while parameters stay
+# float32.  The normalisations compute their statistics in float32.
+#
+# Inference only: BatchNorm uses running statistics; dropout and spectral
+# normalisation (training) are not ported.
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+ACTIVATIONS = {
+    'relu': F.relu,
+    'lrelu': leaky_relu,
+    'tanh': torch.tanh,
+    'sigmoid': torch.sigmoid,
+    'none': lambda x: x,
+}
+
+# Initialisers, named as the flax ones they reproduce.  `fan_in` counts
+# kh*kw*in for convs and `in` for dense layers (flax's compute_fans).
+#   'torch_uniform': variance_scaling(1/3, fan_in, uniform),
+#                    i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+#   'lecun_normal':  flax's default, truncated normal at ±2 std
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated at ±2
+
+
+def init_kernel_(w: torch.Tensor, kind: str, fan_in: int,
+                 gen: torch.Generator) -> None:
+    with torch.no_grad():
+        if kind == 'torch_uniform':
+            bound = 1.0 / math.sqrt(fan_in)
+            w.uniform_(-bound, bound, generator=gen)
+        elif kind == 'lecun_normal':
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=gen)
+        else:
+            raise ValueError(f'unknown kernel init: {kind}')
+
+
+class Conv(nn.Conv2d):
+    """flax nn.Conv counterpart: Conv2d run in the compute dtype."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 init: str = 'lecun_normal'):
+        super().__init__(cin, cout, kernel, stride, padding, bias=bias)
+        self.compute_dtype = dtype
+        self.kernel_init = init
+
+    def reset_parameters(self, gen: Optional[torch.Generator] = None):
+        if gen is None:          # called by nn.Conv2d.__init__
+            return
+        init_kernel_(self.weight, self.kernel_init,
+                     self.in_channels * self.kernel_size[0]
+                     * self.kernel_size[1], gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.conv2d(x.to(cd), self.weight.to(cd), bias, self.stride,
+                        self.padding)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax nn.ConvTranspose counterpart (weights in torch's [in,out,kh,kw]
+    layout, i.e. the flax kernel spatially flipped; see convert.py)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 padding: int, output_padding: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel, stride, padding, output_padding,
+                         bias=bias)
+        self.compute_dtype = dtype
+
+    def reset_parameters(self, gen: Optional[torch.Generator] = None):
+        if gen is None:
+            return
+        init_kernel_(self.weight, 'lecun_normal',
+                     self.in_channels * self.kernel_size[0]
+                     * self.kernel_size[1], gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.conv_transpose2d(x.to(cd), self.weight.to(cd), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding)
+
+
+class Dense(nn.Linear):
+    """flax nn.Dense counterpart: Linear run in the compute dtype."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 init: str = 'lecun_normal'):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = dtype
+        self.kernel_init = init
+
+    def reset_parameters(self, gen: Optional[torch.Generator] = None):
+        if gen is None:
+            return
+        init_kernel_(self.weight, self.kernel_init, self.in_features, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), bias)
+
+
+class TorchConv(nn.Module):
+    """Conv2d with torch padding semantics ('zero' or 'reflect'), kernel
+    init variance_scaling(1/3, fan_in, uniform)."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 stride: int = 1, pad: int = 0, use_bias: bool = True,
+                 pad_type: str = 'zero', dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if pad_type not in ('zero', 'reflect'):
+            raise ValueError(f'unsupported pad_type: {pad_type}')
+        self.pad = pad
+        self.pad_type = pad_type
+        self.conv = Conv(cin, features, kernel, stride,
+                         pad if pad_type == 'zero' else 0, bias=use_bias,
+                         dtype=dtype, init='torch_uniform')
+
+    def forward(self, x):
+        if self.pad > 0 and self.pad_type == 'reflect':
+            x = F.pad(x, (self.pad,) * 4, mode='reflect')
+        return self.conv(x)
+
+
+class TorchConvTranspose(nn.Module):
+    """ConvTranspose2d(k, s, padding, output_padding) as torch defines it."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 stride: int = 2, pad: int = 1, output_pad: int = 1,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = ConvTranspose(cin, features, kernel, stride, pad,
+                                  output_pad, bias=use_bias, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d(affine=False), eps 1e-5; statistics in float32."""
+
+    def __init__(self, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x):
+        x32 = x.float()
+        var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True,
+                                   correction=0)
+        return ((x32 - mean) * torch.rsqrt(var + self.eps)).to(self.dtype)
+
+
+def _channel_shape(x: torch.Tensor):
+    return (1, -1) + (1,) * (x.dim() - 2)
+
+
+class SampleLayerNorm(nn.Module):
+    """The shape branch's layer norm: over the whole sample, UNBIASED std,
+    (x - mean) / (std + eps), per-channel affine; statistics in float32."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(features))
+        self.beta = nn.Parameter(torch.empty(features))
+        self.eps = eps
+        self.dtype = dtype
+
+    def reset_parameters(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.gamma.uniform_(0.0, 1.0, generator=gen)
+            self.beta.zero_()
+
+    def forward(self, x):
+        x32 = x.float()
+        dims = tuple(range(1, x.dim()))
+        n = x[0].numel()
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = ((x32 - mean) ** 2).sum(dim=dims, keepdim=True) / max(n - 1, 1)
+        y = (x32 - mean) / (torch.sqrt(var) + self.eps)
+        shape = _channel_shape(x)
+        y = y * self.gamma.view(shape) + self.beta.view(shape)
+        return y.to(self.dtype)
+
+
+class RunningBatchNorm(nn.Module):
+    """flax nn.BatchNorm at inference (running statistics), channel dim 1.
+
+    Normalises in float32 and returns the compute dtype, as flax does.
+    `affine=False` is the parameter-free norm of ACE."""
+
+    def __init__(self, features: int, affine: bool = True, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.register_buffer('running_mean', torch.zeros(features))
+        self.register_buffer('running_var', torch.ones(features))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.weight = self.bias = None
+        self.eps = eps
+        self.dtype = dtype
+
+    def reset_parameters(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+
+    def forward(self, x):
+        shape = _channel_shape(x)
+        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        return y.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """layers.BatchNorm counterpart: a RunningBatchNorm named 'bn'."""
+
+    def __init__(self, features: int, affine: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.bn = RunningBatchNorm(features, affine, dtype=dtype)
+
+    def forward(self, x):
+        return self.bn(x)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last dim (LinearBlock's 'ln')."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.eps = eps
+        self.dtype = dtype
+
+    def reset_parameters(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias,
+                            self.eps).to(self.dtype)
+
+
+def make_norm(norm: str, features: int, *,
+              dtype: torch.dtype = torch.float32, linear: bool = False):
+    """Map the reference's norm strings to modules (or None).  'ln' is
+    torch's LayerNorm in a LinearBlock and SampleLayerNorm in a ConvBlock,
+    as in the JAX twin."""
+    if norm == 'none':
+        return None
+    if norm == 'in':
+        return InstanceNorm(dtype=dtype)
+    if norm == 'ln':
+        if linear:
+            return LayerNorm(features, dtype=dtype)
+        return SampleLayerNorm(features, dtype=dtype)
+    if norm == 'bn':
+        return BatchNorm(features, affine=True, dtype=dtype)
+    raise ValueError(f'unsupported norm: {norm}')
+
+
+class LinearBlock(nn.Module):
+    """fc -> norm -> activation (dropout is training-only)."""
+
+    def __init__(self, cin: int, features: int, norm: str = 'none',
+                 activation: str = 'relu', use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc = Dense(cin, features, bias=use_bias, dtype=dtype,
+                        init='torch_uniform')
+        self.norm = make_norm(norm, features, dtype=dtype, linear=True)
+        self.activation = activation
+
+    def forward(self, x):
+        x = self.fc(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return ACTIVATIONS[self.activation](x)
+
+
+class ConvBlock(nn.Module):
+    """pad -> conv -> norm -> activation."""
+
+    def __init__(self, cin: int, features: int, kernel: int, stride: int,
+                 pad: int = 0, norm: str = 'none', activation: str = 'relu',
+                 pad_type: str = 'zero', use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = TorchConv(cin, features, kernel, stride, pad,
+                              use_bias=use_bias, pad_type=pad_type,
+                              dtype=dtype)
+        self.norm = make_norm(norm, features, dtype=dtype)
+        self.activation = activation
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return ACTIVATIONS[self.activation](x)
+
+
+class MLP(nn.Module):
+    """Stack of LinearBlocks + a bare linear head."""
+
+    def __init__(self, cin: int, hidden_dim: int, hidden_layers: int,
+                 out_dim: int, norm: str = 'none', activation: str = 'lrelu',
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = [cin] + [hidden_dim] * hidden_layers
+        for i in range(hidden_layers):
+            self.add_module(f'layer_{i}', LinearBlock(
+                dims[i], hidden_dim, norm, activation, dtype=dtype))
+        self.hidden_layers = hidden_layers
+        self.head = LinearBlock(dims[-1], out_dim, 'none', 'none',
+                                dtype=dtype)
+
+    def forward(self, x):
+        for i in range(self.hidden_layers):
+            x = getattr(self, f'layer_{i}')(x)
+        return self.head(x)
+
+
+def init_parameters_(module: nn.Module, gen: torch.Generator) -> None:
+    """Re-draw every parameter of `module` from its flax initialiser, in
+    module order, from one generator.  Modules with parameters of their own
+    (SubspaceLayer, ACE) define `reset_parameters(gen)`."""
+    for m in module.modules():
+        reset = getattr(m, 'reset_parameters', None)
+        if reset is not None:
+            reset(gen)
