@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at the full default PipelineConfig() width
-(random weights from a seed, the shipped median style codes): analyze ->
-latent edits -> output / output_refresh / output_sweep, through
-ctrlhair_tpu_torch.pipeline.editor.HairEditor.  Builds every hand-written
-kernel of that path from csrc/, holds each against its plain PyTorch
-version on the card, shows from the launch counts that the main path ran
-through them, and times kernels and stages with CUDA events and
-torch.cuda.synchronize().  It checks what comes out: uint8 images of the
-expected shape; for the request under an edited hair mask, a finite
-solution that rounds to the session's output, a CG residual cut at least
+Drives the port's two paths at the full default PipelineConfig() width
+(random weights from a seed, the shipped median style codes):
+  1. the editor: analyze -> latent edits -> output / output_refresh /
+     output_sweep, through ctrlhair_tpu_torch.pipeline.editor.HairEditor;
+  2. the Backend session on the same editor: set input and target, every
+     slider, colour and texture transfer, reference-photo shape transfer
+     (twice), an interpolation sweep and a painted hair mask, through
+     ctrlhair_tpu_torch.pipeline.backend.Backend.
+Builds every hand-written kernel of those paths from csrc/ (and the native
+host library from native/), holds each kernel against its plain PyTorch
+version on the card, shows from the launch counts, set to 0 before each
+path and read after it, that the paths ran through the kernels, and times
+kernels and stages with CUDA events and torch.cuda.synchronize().  It
+checks what comes out: uint8 images of the expected shape; for the
+request under an edited hair mask, a finite solution that rounds to the session's output, a CG residual cut at least
 a hundredfold, and a face that moves from the input only by the seam
 correction; and a tiny float32 session on the card equals the same
-session on the CPU, where the plain versions run.
+session on the CPU, where the plain versions run.  For the Backend
+session: the warped composite of the shape transfer has only the labels it
+may have, enough hair, and a hair centroid that moved the way the
+landmarks did; the kernel route of the warp agrees with the host C++ route.
 
 Output: phase lines, then one {"kernels": [...]} JSON line, one {"slice":
 ...} JSON line, the card's `nvidia-smi` name and power limit, and as the
@@ -45,6 +53,11 @@ HBM_BYTES_PER_S = 3.35e12
 # masked CG: float operations per iteration and element (stencil 7, two
 # dot products 4, three axpys 6)
 CG_FLOPS_PER_ELEMENT = 17
+# the UV rasteriser against its plain version (the bar of the JAX package's
+# tests/test_raster_pallas.py): share of pixels within 1e-4, median
+RASTER_WITHIN, RASTER_MEDIAN = 0.995, 1e-6
+# the warp's kernel route against its host route: share of equal labels
+ROUTES_AGREE = 0.999
 
 
 def log(msg: str) -> None:
@@ -76,28 +89,105 @@ def wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def median_wall_ms_in_turns(fns: dict, rounds: int) -> dict:
+    """Median host ms of each function, each call ended by
+    torch.cuda.synchronize(), the functions taken in turns and the order
+    reversed every round, so that a drift of the host's speed falls on all
+    of them alike."""
+    samples = {name: [] for name in fns}
+    for name, fn in fns.items():
+        fn()                                    # warm-up
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        order = list(fns) if r % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            samples[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
+    """Mean ms the card spends in the kernel `kernel_name` per call of `fn`,
+    from torch.profiler: the kernel alone, without the host's launch cost
+    that CUDA events around a short kernel include."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel_name in e.key]
+    count = sum(e.count for e in events)
+    if count != reps:
+        raise AssertionError(f'profiler saw {count} launches of '
+                             f'{kernel_name}, expected {reps}')
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
 def masked_cg_bound_ms(n: int, c: int, h: int, w: int, iterations: int):
-    """(least ms the card could take, 'operations' or 'bytes')."""
     elems = n * c * h * w
-    ops_s = CG_FLOPS_PER_ELEMENT * iterations * elems / F32_PEAK_FLOPS
-    bytes_s = 4 * elems * 4 / HBM_BYTES_PER_S   # b, unk, x0 in; x out
+    # b, unk, x0 in; x out
+    return bound_ms(4 * elems * 4, CG_FLOPS_PER_ELEMENT * iterations * elems)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least ms the card could take, 'operations' or 'bytes')."""
+    ops_s, bytes_s = flops / F32_PEAK_FLOPS, n_bytes / HBM_BYTES_PER_S
     if ops_s >= bytes_s:
         return ops_s * 1e3, 'operations'
     return bytes_s * 1e3, 'bytes'
 
 
+def raster_uv_work(tri: np.ndarray, counts: np.ndarray, height: int,
+                   width: int, max_bin: int):
+    """(bytes, float operations) one UV map of these tables needs at least:
+    the six floats of every row of both triangle tables (24 B of the 32 B
+    row; the rest is padding the kernel never loads), the count of every
+    tile and the `counts[tile]` indices the tile walks (not the padded
+    `max_bin` slots of the bin table) read once, the map written once; per
+    pixel every triangle binned to its tile tested once (3 edge functions
+    of 6 operations: 18) and one barycentric UV (3 + 10), plus the identity
+    UV (2)."""
+    from ctrlhair_tpu_torch.ops.raster_pallas import TILE_H, TILE_W
+    if int(counts.max(initial=0)) > max_bin:
+        raise AssertionError('a tile holds more indices than its budget')
+    n_bytes = (2 * tri.shape[0] * 24 + int(counts.sum()) * 4
+               + counts.size * 4 + height * width * 2 * 4)
+    rows = np.minimum(TILE_H, height - np.arange(-(-height // TILE_H))
+                      * TILE_H)
+    cols = np.minimum(TILE_W, width - np.arange(-(-width // TILE_W))
+                      * TILE_W)
+    pixels = (rows[:, None] * cols[None, :]).ravel()
+    flops = int((pixels * counts).sum()) * 18 + height * width * (13 + 2)
+    return int(n_bytes), flops
+
+
 def phase_build():
+    """Build both kernels at once (one nvcc each) and the native host
+    library, all from the sources beside this script."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ctrlhair_tpu_torch.native import NATIVE
     from ctrlhair_tpu_torch.ops.poisson_pallas import MASKED_CG
+    from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
+    libs = (MASKED_CG, RASTER_UV, NATIVE)
     t0 = time.perf_counter()
-    path = MASKED_CG.build()
-    log(f'[build] {os.path.relpath(path, ROOT)} in '
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: lib.build(), libs))
+    log(f'[build] {", ".join(os.path.relpath(p, ROOT) for p in paths)} in '
         f'{time.perf_counter() - t0:.1f} s')
-    for line in MASKED_CG.build_log().splitlines():
-        if 'ptxas info' in line and ('Used' in line or 'spill' in line
-                                     or 'Compiling' in line):
-            log(f'[build] {line.strip()}')
-        elif 'bytes stack frame' in line:
-            log(f'[build] {line.strip()}')
+    log(f'[build] host compiler: {" ".join(NATIVE.command())}')
+    for kernel in (MASKED_CG, RASTER_UV):
+        for line in kernel.build_log().splitlines():
+            if 'ptxas info' in line and ('Used' in line or 'spill' in line
+                                         or 'Compiling' in line):
+                log(f'[build] {line.strip()}')
+            elif 'bytes stack frame' in line:
+                log(f'[build] {line.strip()}')
+    for lib in libs:
+        lib.lib()           # load and declare, so a bad build fails here
 
 
 def make_image(rng: np.random.Generator, size: int) -> np.ndarray:
@@ -209,8 +299,10 @@ def check_outputs(editor, a_in, lat, hair_label, outs, face_u8):
 
 
 def phase_reference(cfg_mod, seed):
-    """The same tiny float32 session on the card and on the CPU (plain
-    versions of every kernel): labels and images must agree."""
+    """The same tiny float32 sessions, the editor's and the Backend's, on
+    the card and on the CPU (plain versions of every kernel): labels and
+    images must agree."""
+    from ctrlhair_tpu_torch.pipeline.backend import Backend
     from ctrlhair_tpu_torch.pipeline.editor import HairEditor
     cfg = cfg_mod.PipelineConfig(
         sean=cfg_mod.SEANConfig(crop_size=64, ngf=4, zencoder_ngf=4,
@@ -238,9 +330,26 @@ def phase_reference(cfg_mod, seed):
     log(f'[reference] tiny float32 session, card vs CPU: labels equal on '
         f'{label_eq:.5f} of pixels; outputs within 1 step on >= '
         f'{worst:.5f} of pixels')
-    if label_eq < 0.999 or worst < 0.999:
+    # the Backend session: on the card the warp takes the kernel route, on
+    # the CPU the plain one
+    be_gpu, be_cpu = (Backend(cfg=cfg, editor=ed, seed=seed)
+                      for ed in (gpu, cpu))
+    alphas8 = np.linspace(0, 1, 8, dtype=np.float32)
+    b_gpu = backend_session(be_gpu, img, img_tg, alphas8)[0]
+    b_cpu = backend_session(be_cpu, img, img_tg, alphas8)[0]
+    warp_eq = float((be_gpu.warp_target.cpu() == be_cpu.warp_target
+                     ).float().mean())
+    b_worst = 1.0
+    for name in b_gpu:
+        d = np.abs(b_gpu[name].astype(np.int32) - b_cpu[name])
+        b_worst = min(b_worst, float((d <= 1).mean()))
+    log(f'[reference] tiny float32 Backend session, card vs CPU: '
+        f'warp_target equal on {warp_eq:.5f} of pixels; outputs within 1 '
+        f'step on >= {b_worst:.5f} of pixels')
+    if min(label_eq, worst, warp_eq, b_worst) < 0.999:
         raise AssertionError('card and CPU runs of the port disagree')
-    return {'labels_equal': label_eq, 'within_1_step': worst}
+    return {'labels_equal': label_eq, 'within_1_step': worst,
+            'backend_warp_equal': warp_eq, 'backend_within_1_step': b_worst}
 
 
 def centre_block_case(size, rng, device):
@@ -256,6 +365,278 @@ def centre_block_case(size, rng, device):
     return src, tgt, mask
 
 
+def paint_face(size: int, cx: float, cy: float, scale: float,
+               device) -> torch.Tensor:
+    """A synthetic CelebA-style parse [size,size] int32, painted on
+    `device`: background, neck, a hair cap, a skin ellipse, brows, eyes,
+    nose and mouth at face-proportional places.  (cx, cy) is the face
+    centre and `scale` its size, in fractions of the image."""
+    from ctrlhair_tpu_torch.constants import PARSING_LABEL_LIST
+    idx = {name: i for i, name in enumerate(PARSING_LABEL_LIST)}
+    ys, xs = torch.meshgrid(
+        torch.arange(size, dtype=torch.float32, device=device) / size,
+        torch.arange(size, dtype=torch.float32, device=device) / size,
+        indexing='ij')
+    lab = torch.zeros((size, size), dtype=torch.int32, device=device)
+    fw, fh = 0.26 * scale, 0.34 * scale
+
+    def ellipse(ex, ey, rx, ry, name):
+        lab[((xs - ex) / rx) ** 2 + ((ys - ey) / ry) ** 2 <= 1] = idx[name]
+
+    lab[(ys > cy) & ((xs - cx).abs() < 0.5 * fw)] = idx['neck']
+    ellipse(cx, cy - 0.06 * scale, fw * 1.25, fh * 1.15, 'hair')
+    ellipse(cx, cy, fw, fh, 'skin_other')
+    lab[(ys < cy - 0.24 * scale) & (lab == idx['skin_other'])] = idx['hair']
+    ex, ey = 0.45 * fw, cy - 0.30 * fh
+    for side, sign in (('l', -1), ('r', 1)):
+        ellipse(cx + sign * ex, ey, 0.17 * fw, 0.05 * fh, f'{side}_eye')
+        ellipse(cx + sign * ex, ey - 0.14 * fh, 0.22 * fw, 0.02 * fh,
+                f'{side}_brow')
+    ellipse(cx, cy + 0.05 * fh, 0.13 * fw, 0.22 * fh, 'nose')
+    my = cy + 0.55 * fh
+    ellipse(cx, my - 0.03 * fh, 0.30 * fw, 0.045 * fh, 'u_lip')
+    ellipse(cx, my + 0.03 * fh, 0.30 * fw, 0.045 * fh, 'l_lip')
+    ellipse(cx, my, 0.24 * fw, 0.022 * fh, 'mouth')
+    return lab
+
+
+def backend_session(be, img_in, img_tg, alphas):
+    """The Backend path as a user drives it: load two photos, move every
+    slider, read the sliders back, transfer colour and texture, render;
+    transfer the reference photo's hair shape twice (the second from the
+    cached landmarks), render after each; sweep; paint a hair mask, render.
+    Random weights parse no face, so two painted parses stand in for the
+    parser's output in the Backend's cache before the shape transfer.
+    Returns (outputs by name, blends made, shape transfers made, the two
+    painted parses)."""
+    from ctrlhair_tpu_torch.constants import HAIR_IDX
+    outs, blends = {}, 0
+    be.set_input_img(img_in)
+    be.set_target_img(img_tg)
+    start = be.cur_latent
+    be.change_curliness(0.7)
+    for idx, val in enumerate((0.4, -0.8, 1.1, 0.5)):
+        be.change_color(val, idx)
+    for idx, val in enumerate((0.6, -0.4, 0.3, -0.2)):
+        be.change_shape(val, idx)
+    for idx, val in enumerate((0.9, -0.5)):
+        be.change_texture(val, idx)
+    sliders = (be.get_curliness_be2fe(), *be.get_color_be2fe(),
+               *be.get_shape_be2fe(), *be.get_texture_be2fe())
+    if not np.isfinite(sliders).all():
+        raise AssertionError(f'slider read-backs not finite: {sliders}')
+    be.transfer_latent_representation('color')
+    be.transfer_latent_representation('texture')
+    outs['transfer'] = be.output()
+    blends += 1
+
+    p = be.cfg.bisenet.input_size
+    parse_in = paint_face(p, 0.50, 0.54, 1.0, be.device)
+    parse_tg = paint_face(p, 0.42, 0.58, 0.85, be.device)
+    be._parse512['input'], be._parse512['target'] = parse_in, parse_tg
+    be._lm81['input'] = be._lm81['target'] = None
+    be.transfer_latent_representation('shape')
+    outs['shape'] = be.output()
+    blends += 1
+    landmarks = be._lm81['target']
+    be.transfer_latent_representation('shape')
+    if be._lm81['target'] is not landmarks:
+        raise AssertionError('the second shape transfer estimated the '
+                             'landmarks again')
+    outs['shape_again'] = be.output(be.cur_latent)    # the refresh branch
+    blends += 1
+    outs['sweep'] = be.interpolation_sweep(start, be.cur_latent, alphas)
+    blends += 1
+    s = be.cfg.edit_size
+    painted = np.zeros((s, s), np.int32)
+    painted[s // 8:s // 2, s // 4:3 * s // 4] = HAIR_IDX
+    be.directly_change_hair_mask(painted)
+    outs['painted'] = be.output()
+    blends += 1
+    return outs, blends, 2, (parse_in, parse_tg)
+
+
+def check_backend_session(be, outs, parses):
+    """Outputs are finite uint8 [.., S, S, 3] images; the warped composite
+    has labels only from the input parse, hair and `unknown`, more than
+    1,000 hair pixels at the edit size, and its hair moved from the
+    reference photo's place the way the landmarks did."""
+    from ctrlhair_tpu_torch.constants import HAIR_IDX, UNKNOWN_LABEL
+    s = be.cfg.edit_size
+    for name, out in outs.items():
+        if not isinstance(out, np.ndarray) or out.dtype != np.uint8 \
+                or out.shape[-3:] != (s, s, 3):
+            raise AssertionError(f'Backend output {name}: {type(out)} '
+                                 f'{getattr(out, "shape", None)}')
+    if outs['sweep'].shape[0] != 8:
+        raise AssertionError(f'sweep of {outs["sweep"].shape[0]} images')
+    parse_in, parse_tg = parses
+    wt = be.warp_target
+    if wt.device != be.device or tuple(wt.shape) != (s, s):
+        raise AssertionError(f'warp_target {wt.device} {tuple(wt.shape)}')
+    allowed = set(parse_in.unique().tolist()) | {HAIR_IDX, UNKNOWN_LABEL}
+    labels = set(wt.unique().tolist())
+    hair = wt == HAIR_IDX
+    f = parse_tg.shape[0] // s
+    donor = parse_tg[::f, ::f] == HAIR_IDX
+
+    def centroid(mask):
+        ys, xs = torch.nonzero(mask, as_tuple=True)
+        return np.array([float(xs.float().mean()), float(ys.float().mean())])
+
+    moved = centroid(hair) - centroid(donor)
+    lm_shift = (be._lm81['input'] - be._lm81['target']).mean(0) * s
+    stats = {'labels': sorted(labels), 'hair_px': int(hair.sum()),
+             'unknown_px': int((wt == UNKNOWN_LABEL).sum()),
+             'hair_moved_px': moved.tolist(),
+             'landmarks_moved_px': lm_shift.tolist()}
+    log(f'[backend] warped composite: {stats}')
+    # the landmarks move by (+0.08, -0.04) of the image; the hair follows
+    # with at least a quarter of that, in the same direction, on each axis
+    follows = all(m * l > 0 and abs(m) >= 0.25 * abs(l)
+                  for m, l in zip(moved, lm_shift))
+    if not (labels <= allowed and stats['hair_px'] > 1000 and follows):
+        raise AssertionError(f'warped composite fails its checks: {stats}')
+    return stats
+
+
+def raster_cases(be):
+    """(name, verts_dst, tris, uv, size) for the kernel's comparison: the
+    Backend session's own warp mesh at parse size + 2 * BG_PAD, the 5-point
+    mesh of the JAX package's rasteriser test at 64 px, and no triangle."""
+    from ctrlhair_tpu_torch.ops import warp
+    p = be.cfg.bisenet.input_size
+    big = p + 2 * warp.BG_PAD
+    sel = warp.CHOSEN_LANDMARKS
+    # the transfer warps the reference (target) photo's hair onto the input
+    src = be._lm81['target'].astype(np.float64)[sel] * p + warp.BG_PAD
+    dst = be._lm81['input'].astype(np.float64)[sel] * p + warp.BG_PAD
+    verts, vdst, tris = warp.build_warp_mesh(src, dst, big, big)
+    yield 'session', vdst, tris, verts / big, big
+    src = np.array([[16, 16], [48, 16], [16, 48], [48, 48], [32, 32]], float)
+    verts, vdst, tris = warp.build_warp_mesh(
+        src, src + np.array([3.0, -2.0]), 64, 64, use_arap=False)
+    yield 'five_point', vdst, tris, verts / 64, 64
+    yield ('empty', np.zeros((3, 2)), np.full((64, 3), -1, np.int32),
+           np.zeros((3, 2)), 32)
+
+
+def phase_raster_kernel(be):
+    """K2 against its plain version on the card, float32, then its times on
+    the session's mesh.  Returns the kernel's entry for the kernels line
+    (without the launch count) and the session's mesh."""
+    from ctrlhair_tpu_torch.ops import raster_pallas as rp
+    from ctrlhair_tpu_torch.ops import warp
+    dev = be.device
+    up = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    max_err, entry, mesh = 0.0, {}, None
+    for name, vdst, tris, uv, size in raster_cases(be):
+        got = rp.rasterize_uv_cuda(vdst, tris, uv, size, size, dev)
+        want = warp.rasterize_uv(up(vdst, torch.float32),
+                                 up(tris, torch.int64),
+                                 up(uv, torch.float32), size, size)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        within = float((d < 1e-4).float().mean())
+        median, worst = float(d.median()), float(d.max())
+        equal = float((d == 0).float().mean())
+        log(f'[kernel] raster_uv {name} {size}x{size}, '
+            f'{int((np.asarray(tris)[:, 0] >= 0).sum())} triangles: within '
+            f'1e-4 on {within:.5f} of pixels, bit-equal on {equal:.5f}, '
+            f'median {median:.2e}, max {worst:.2e}')
+        if not (within >= RASTER_WITHIN and median < RASTER_MEDIAN
+                and torch.isfinite(got).all()):
+            raise AssertionError(f'raster_uv disagrees on {name}')
+        if name == 'empty' and worst != 0.0:
+            raise AssertionError('raster_uv: the identity UV is not exact')
+        max_err = max(max_err, worst)
+        if name != 'session':
+            continue
+        mesh = (vdst, tris, uv, size)
+        tri, uvt = rp.triangle_tables(vdst, tris, uv)
+        bins, counts, _, _, max_bin = rp.bin_with_retry(tri, size, size)
+        n_bytes, flops = raster_uv_work(tri, counts, size, size, max_bin)
+        tabs = [torch.from_numpy(a).to(dev) for a in (tri, uvt, bins,
+                                                      counts)]
+        args = (up(vdst, torch.float32), up(tris, torch.int64),
+                up(uv, torch.float32), size, size)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        entry = {
+            'ms': cuda_ms(lambda: rp.rasterize_binned_cuda(*tabs, size,
+                                                           size), 50),
+            'device_ms': kernel_device_ms(
+                lambda: rp.rasterize_binned_cuda(*tabs, size, size),
+                'raster_uv_kernel', 20),
+            'plain_ms': cuda_ms(lambda: warp.rasterize_uv(*args), 3),
+            'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+            'bound_us': b_ms * 1e3,
+            'case': {
+                'shape': [size, size, 2], 'triangles': int(tri.shape[0]),
+                'max_bin': max_bin, 'bytes': n_bytes, 'flops': flops,
+                'indices_binned': int(counts.sum()),
+                'mean_triangles_per_tile': float(counts.mean()),
+                'max_triangles_per_tile': int(counts.max())},
+        }
+        entry['kernel_ms'] = entry['ms']
+        log(f'[time] raster_uv {size}x{size}, {tri.shape[0]} triangles, '
+            f'{counts.mean():.1f} per tile (max {counts.max()}): kernel '
+            f'{entry["ms"]:.4f} ms per call by CUDA events (the wrapper\'s '
+            f'host cost included), {entry["device_ms"]:.4f} ms on the card '
+            f'by the profiler; plain {entry["plain_ms"]:.4f} ms, bound '
+            f'{b_ms:.6f} ms ({b_by})')
+    entry['max_abs_err'] = entry['max_abs_vs_plain'] = max_err
+    return entry, mesh
+
+
+def phase_warp_routes(be, parses, mesh):
+    """The whole warp by the kernel route against the host C++ route on the
+    session's parses and landmarks, and the times of its parts."""
+    from ctrlhair_tpu_torch.ops import raster_pallas as rp
+    from ctrlhair_tpu_torch.ops import warp
+    parse_in, parse_tg = parses
+    lm_tg, lm_in = be._lm81['target'], be._lm81['input']
+    s = be.cfg.edit_size
+
+    def run(route):
+        return warp.hair_mask_transfer_warp(parse_tg, parse_in, lm_tg, lm_in,
+                                            out_size=s, raster=route)
+
+    before = rp.RASTER_UV.launches
+    on_card, on_host = run(None), run('host')
+    if rp.RASTER_UV.launches != before + 1:
+        raise AssertionError('raster=None on CUDA tensors did not launch the '
+                             'kernel exactly once')
+    agree = float((on_card == on_host).float().mean())
+    same = float((on_card == be.warp_target).float().mean())
+    log(f'[backend] warp, kernel route vs host route: labels equal on '
+        f'{agree:.5f} of pixels; vs the session\'s warp_target {same:.5f}')
+    if agree < ROUTES_AGREE or same != 1.0:
+        raise AssertionError('the warp routes disagree')
+
+    vdst, tris, uv, size = mesh
+    p = be.cfg.bisenet.input_size
+    sel = warp.CHOSEN_LANDMARKS
+    src = lm_tg.astype(np.float64)[sel] * p + warp.BG_PAD
+    dst = lm_in.astype(np.float64)[sel] * p + warp.BG_PAD
+
+    def bin_mesh():
+        tri, _ = rp.triangle_tables(vdst, tris, uv)
+        rp.bin_with_retry(tri, size, size)
+
+    # the warp's parts and its two routes, in turns within one run
+    times = median_wall_ms_in_turns({
+        'warp.mesh_arap_host': lambda: warp.build_warp_mesh(src, dst, size,
+                                                            size),
+        'warp.binning_host': bin_mesh,
+        'warp.kernel_route': lambda: run(None),
+        'warp.host_route': lambda: run('host'),
+    }, 10)
+    times['backend.shape_transfer'] = wall_ms(
+        lambda: be.transfer_latent_representation('shape'), 3)
+    times['backend.output'] = wall_ms(be.output, 5)
+    return {'routes_agree': agree}, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -265,6 +646,8 @@ def main() -> int:
     from ctrlhair_tpu_torch.ops.poisson import blend_system, decode_solution
     from ctrlhair_tpu_torch.ops.poisson_pallas import (
         MASKED_CG, masked_cg_cuda, masked_cg_plain)
+    from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
+    from ctrlhair_tpu_torch.pipeline.backend import Backend
     from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 
     t_start = time.perf_counter()
@@ -297,28 +680,58 @@ def main() -> int:
     if float(editor.style_fallback.abs().sum()) == 0:
         raise AssertionError('no median style code was loaded')
 
-
     # 4. a session on the main path, the launch counts read around it
     rng = np.random.default_rng(SEED)
     s = cfg.edit_size
     img_in = make_image(rng, s)         # parsed at 512 after a resize
     img_tg = make_image(rng, s)
     alphas = np.linspace(0.0, 1.0, 8, dtype=np.float32)
-    MASKED_CG.launches = 0
+    MASKED_CG.launches = RASTER_UV.launches = 0
     with torch.inference_mode():
         a_in, lat, hair_label, outs, hair_px = session(
             editor, img_in, img_tg, alphas)
     torch.cuda.synchronize()
     launches = MASKED_CG.launches
+    raster_launches = RASTER_UV.launches
     log(f'[session] 2 analyses, 4 outputs, 1 refresh, 1 sweep of '
-        f'{len(alphas)}: masked_cg launches {launches}; hair pixels in the '
-        f'input label {hair_px}')
+        f'{len(alphas)}: masked_cg launches {launches}, raster_uv launches '
+        f'{raster_launches}; hair pixels in the input label {hair_px}')
     if launches != 6:
         raise AssertionError(f'masked_cg launched {launches} times on the '
                              'main path, expected 6 (one per blend)')
+    if raster_launches != 0:
+        raise AssertionError(f'raster_uv launched {raster_launches} times '
+                             'on the editor\'s path, which warps nothing')
     session_check = check_outputs(editor, a_in, lat, hair_label, outs,
                                   img_in)
     reference = phase_reference(cfg_mod, SEED)
+
+    # 4b. the Backend session on the same editor, the launch counts of both
+    # kernels set to 0 before it and read after it
+    backend = Backend(cfg=cfg, editor=editor, seed=SEED,
+                      trained_root=os.path.join(ROOT, 'model_trained'))
+    log(f'[backend] Backend(editor, trained_root=model_trained): HSV table '
+        f'of {backend.dist_translation.n} rows, {len(backend.shape_dirs)} '
+        f'shape and {len(backend.texture_dirs)} texture directions')
+    log('[backend] random weights parse no face: two synthetic '
+        f'{cfg.bisenet.input_size} px label maps (skin, brows, eyes, nose, '
+        'mouth, neck, hair cap; the reference photo\'s face shifted and '
+        'scaled) are painted on the card and put into the Backend\'s '
+        'cached parses before the shape transfer')
+    MASKED_CG.launches = RASTER_UV.launches = 0
+    b_outs, blends, transfers, parses = backend_session(
+        backend, img_in, img_tg, alphas)
+    torch.cuda.synchronize()
+    b_launches = {'masked_cg': MASKED_CG.launches,
+                  'raster_uv': RASTER_UV.launches}
+    log(f'[backend] session: 2 photos, 11 slider moves, colour, texture and '
+        f'{transfers} shape transfers, {blends} blends (one a sweep of '
+        f'{len(alphas)}): launches {b_launches}')
+    if b_launches != {'masked_cg': blends, 'raster_uv': transfers}:
+        raise AssertionError(f'Backend session launched {b_launches}, '
+                             f'expected {blends} blends and {transfers} '
+                             'shape transfers')
+    warp_check = check_backend_session(backend, b_outs, parses)
 
     # 5. the kernel against its plain version on the card, float32, on the
     # systems of the session's edited-mask request and sweep
@@ -353,6 +766,10 @@ def main() -> int:
                 raise AssertionError(f'masked_cg disagrees on {name}')
             max_err = max(max_err, err)
 
+    # 5b. K2 against its plain version, and the warp's two routes
+    raster_entry, mesh = phase_raster_kernel(backend)
+    routes_check, backend_ms = phase_warp_routes(backend, parses, mesh)
+
     # 6. timings
     with torch.inference_mode():
         times = {}
@@ -361,9 +778,13 @@ def main() -> int:
             times[name] = (
                 cuda_ms(lambda: masked_cg_cuda(b, u, x0, iters), 20),
                 cuda_ms(lambda: masked_cg_plain(b, u, x0, iters), 3),
-                masked_cg_bound_ms(*b.shape, iters))
+                masked_cg_bound_ms(*b.shape, iters),
+                kernel_device_ms(lambda: masked_cg_cuda(b, u, x0, iters),
+                                 'masked_cg_kernel', 10))
             log(f'[time] masked_cg {name} {tuple(b.shape)}: kernel '
-                f'{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, '
+                f'{times[name][0]:.4f} ms by CUDA events, '
+                f'{times[name][3]:.4f} ms on the card by the profiler, plain '
+                f'{times[name][1]:.4f} ms, '
                 f'bound {times[name][2][0]:.6f} ms '
                 f'({times[name][2][1]})')
         face = img_in[None]
@@ -383,6 +804,7 @@ def main() -> int:
             lambda: editor._edit_render(codes, regen, lat), 5)
         stage_ms['output.blend'] = wall_ms(
             lambda: editor._blend(face_t, gen, label, regen), 5)
+    stage_ms.update(backend_ms)
     for k, v in stage_ms.items():
         log(f'[time] {k}: {v:.3f} ms wall')
     profile = profile_output(editor, codes, lat, face, label, regen)
@@ -395,20 +817,36 @@ def main() -> int:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip()
-    k1, p1, (bound1, bound_by) = times['blend_n1']
-    k8, p8, (bound8, _) = times['blend_n8']
+    k1, p1, (bound1, bound_by), d1 = times['blend_n1']
+    k8, p8, (bound8, _), d8 = times['blend_n8']
     kernels = [{
         'name': 'masked_cg', 'route': 'cuda',
         'source': 'ctrlhair_tpu_torch/csrc/masked_cg.cu',
         'replaces': 'ctrlhair_tpu/ops/poisson_pallas.py:33',
-        'launches': launches, 'max_abs_err': max_err, 'ms': k1,
+        'launches': launches + b_launches['masked_cg'],
+        'launches_by_path': {'editor': launches,
+                             'backend': b_launches['masked_cg']},
+        'max_abs_err': max_err, 'ms': k1, 'device_ms': d1,
         'plain_ms': p1, 'bound_ms': bound1, 'bound_by': bound_by,
         'library_ms': None,
         'max_abs_vs_plain': max_err, 'kernel_ms': k1,
         'bound_us': bound1 * 1e3,
-        'shape': [1, 3, s, s], 'iterations': iters,
-        'n8': {'ms': k8, 'plain_ms': p8, 'bound_ms': bound8},
+        'case': {'shape': [1, 3, s, s], 'iterations': iters,
+                 'n8': {'ms': k8, 'device_ms': d8, 'plain_ms': p8,
+                        'bound_ms': bound8}},
+    }, {
+        'name': 'raster_uv', 'route': 'cuda',
+        'source': 'ctrlhair_tpu_torch/csrc/raster_uv.cu',
+        'replaces': 'ctrlhair_tpu/ops/raster_pallas.py:146',
+        'launches': raster_launches + b_launches['raster_uv'],
+        'launches_by_path': {'editor': raster_launches,
+                             'backend': b_launches['raster_uv']},
+        **raster_entry,
     }]
+    if set(kernels[0]) != set(kernels[1]):
+        raise AssertionError('the kernels line gives the two kernels '
+                             'different keys: '
+                             f'{set(kernels[0]) ^ set(kernels[1])}')
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'slice': {
         'config': 'PipelineConfig()', 'compute_dtype': cfg.compute_dtype,
@@ -416,6 +854,7 @@ def main() -> int:
         'max_memory_allocated': torch.cuda.max_memory_allocated(),
         'stage_ms': stage_ms, 'profile': profile,
         'session_check': session_check, 'reference': reference,
+        'backend_check': {**warp_check, **routes_check},
         'seconds': time.perf_counter() - t_start}}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -1,0 +1,186 @@
+# The tiled UV rasteriser of the warp mesh (kernel K2) and its host binning.
+#
+# Port of ctrlhair_tpu/ops/raster_pallas.py (kept at the same relative
+# path): the TPU kernel `_kernel`, launched by `_rasterize_binned`, becomes
+# the hand-written CUDA kernel csrc/raster_uv.cu, one launch per UV map,
+# whose source note gives its design.  The triangles are binned per pixel
+# tile on the host (the mesh is built there anyway), so a tile walks only
+# the triangles whose bounding box meets it, in ascending triangle index:
+# "first hit wins" then names the same triangle as in the plain version,
+# ops/warp.rasterize_uv, which walks the whole list in order.
+# `rasterize_uv_cuda` launches the kernel on CUDA tensors or raises; there
+# is no CPU form of it: on the CPU ops/warp takes the plain version.
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ctrlhair_tpu_torch.utils.cuda_build import CudaKernel
+
+# the pixel tile of one CTA (csrc/raster_uv.cu: RASTER_TILE_H/W)
+TILE_H = 16
+TILE_W = 32
+MAX_BIN = 256          # triangle budget per tile; doubles up to 4x
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.raster_uv_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     i32, i32, i32, ptr]
+    lib.raster_uv_launch.restype = i32
+    lib.raster_uv_tile.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.raster_uv_tile.restype = None
+    lib.raster_uv_error_string.argtypes = [i32]
+    lib.raster_uv_error_string.restype = ctypes.c_char_p
+    th, tw = i32(0), i32(0)
+    lib.raster_uv_tile(ctypes.byref(th), ctypes.byref(tw))
+    if (th.value, tw.value) != (TILE_H, TILE_W):
+        raise RuntimeError(f'raster_uv: the kernel tiles {th.value}x'
+                           f'{tw.value} pixels, the binning {TILE_H}x{TILE_W}')
+
+
+# -fmad=false: an FMA in an edge function would round once where the plain
+# version rounds twice and could hand an edge pixel to the other triangle
+RASTER_UV = CudaKernel('raster_uv', _declare, extra_flags=('-fmad=false',))
+
+
+def triangle_tables(verts_dst: np.ndarray, tris: np.ndarray,
+                    uv: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-triangle rows for the kernel, padding rows of `tris` (first index
+    negative) dropped: (tri [T,8] float32 = ax ay bx by cx cy 0 0,
+    uvt [T,8] float32 = ua va ub vb uc vc 0 0)."""
+    verts = np.asarray(verts_dst, np.float32)
+    uvf = np.asarray(uv, np.float32)
+    tris = np.asarray(tris)
+    tris = tris[tris[:, 0] >= 0]
+    if tris.size and (tris.min() < 0 or tris.max() >= len(verts)):
+        raise ValueError('triangle_tables: vertex index out of range')
+    zeros = np.zeros((len(tris), 2), np.float32)
+    tri = np.concatenate([verts[tris[:, 0]], verts[tris[:, 1]],
+                          verts[tris[:, 2]], zeros], 1)
+    uvt = np.concatenate([uvf[tris[:, 0]], uvf[tris[:, 1]],
+                          uvf[tris[:, 2]], zeros], 1)
+    return tri, uvt
+
+
+def bin_triangles(tri: np.ndarray, height: int, width: int,
+                  max_bin: int = MAX_BIN
+                  ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Host tile binning of `triangle_tables`' rows.
+
+    Every triangle goes to every tile its bounding box meets (tile ranges
+    clipped to the grid, as the JAX binning clips them).  Returns
+    (bins [G, max_bin] int32: each tile's triangle indices ascending, -1
+    beyond the count; counts [G] int32; grid_h; grid_w) with
+    G = grid_h*grid_w row-major tiles.  Raises OverflowError when a tile
+    meets more than `max_bin` triangles."""
+    grid_h = -(-height // TILE_H)
+    grid_w = -(-width // TILE_W)
+    n_tiles = grid_h * grid_w
+    xs, ys = tri[:, 0:6:2], tri[:, 1:6:2]
+    ty0 = np.clip((ys.min(1) // TILE_H).astype(np.int64), 0, grid_h - 1)
+    ty1 = np.clip((ys.max(1) // TILE_H).astype(np.int64), 0, grid_h - 1)
+    tx0 = np.clip((xs.min(1) // TILE_W).astype(np.int64), 0, grid_w - 1)
+    tx1 = np.clip((xs.max(1) // TILE_W).astype(np.int64), 0, grid_w - 1)
+    nx = tx1 - tx0 + 1
+    per_tri = (ty1 - ty0 + 1) * nx
+    # one (triangle, tile) pair per covered tile, triangles ascending
+    t_idx = np.repeat(np.arange(len(tri)), per_tri)
+    k = np.arange(per_tri.sum()) - np.repeat(np.cumsum(per_tri) - per_tri,
+                                             per_tri)
+    tile = ((ty0[t_idx] + k // nx[t_idx]) * grid_w
+            + tx0[t_idx] + k % nx[t_idx])
+    counts = np.bincount(tile, minlength=n_tiles)
+    if counts.max(initial=0) > max_bin:
+        raise OverflowError('per-tile triangle budget exceeded')
+    # a stable sort by tile keeps the triangles of a tile ascending
+    order = np.argsort(tile, kind='stable')
+    tile_s = tile[order]
+    slot = np.arange(len(tile_s)) - np.repeat(np.cumsum(counts) - counts,
+                                              counts)
+    bins = np.full((n_tiles, max_bin), -1, np.int32)
+    bins[tile_s, slot] = t_idx[order]
+    return bins, counts.astype(np.int32), grid_h, grid_w
+
+
+def bin_with_retry(tri: np.ndarray, height: int, width: int):
+    """`bin_triangles` with the budget doubled on overflow, up to 4x
+    MAX_BIN; then the OverflowError stands.  Returns bin_triangles' tuple
+    plus the budget used."""
+    max_bin = MAX_BIN
+    while True:
+        try:
+            return bin_triangles(tri, height, width, max_bin) + (max_bin,)
+        except OverflowError:
+            if max_bin >= 4 * MAX_BIN:
+                raise
+            max_bin *= 2
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.raster_uv_error_string(err).decode()
+        raise RuntimeError(f'raster_uv {what}: CUDA error {err} ({msg})')
+
+
+def rasterize_binned_cuda(tri: torch.Tensor, uvt: torch.Tensor,
+                          bins: torch.Tensor, counts: torch.Tensor,
+                          height: int, width: int) -> torch.Tensor:
+    """One launch of csrc/raster_uv.cu on CUDA tensors -> [H,W,2] float32."""
+    ts = (tri, uvt, bins, counts)
+    if any(t.device.type != 'cuda' or t.device != tri.device for t in ts):
+        raise ValueError('rasterize_binned_cuda: all tables must lie on one '
+                         'CUDA device')
+    if tri.dtype != torch.float32 or uvt.dtype != torch.float32 \
+            or bins.dtype != torch.int32 or counts.dtype != torch.int32:
+        raise TypeError('rasterize_binned_cuda: float32 triangle tables and '
+                        'int32 bins and counts only')
+    grid_h = -(-height // TILE_H)
+    grid_w = -(-width // TILE_W)
+    if tri.dim() != 2 or tri.shape[1] != 8 or uvt.shape != tri.shape \
+            or bins.dim() != 2 or bins.shape[0] != grid_h * grid_w \
+            or bins.shape[1] < 1 or counts.shape != (grid_h * grid_w,):
+        shapes = [tuple(t.shape) for t in ts]
+        raise ValueError(f'rasterize_binned_cuda: {height}x{width} needs '
+                         f'[T,8] tables and {grid_h * grid_w} tiles, got '
+                         f'{shapes}')
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError('rasterize_binned_cuda: contiguous tensors only')
+    if height < 1 or width < 1 or height * width >= 2 ** 30:
+        raise ValueError(f'rasterize_binned_cuda: unsupported size '
+                         f'{height}x{width}')
+    lib = RASTER_UV.lib()
+    with torch.cuda.device(tri.device):
+        out = torch.empty((height, width, 2), dtype=torch.float32,
+                          device=tri.device)
+        stream = torch.cuda.current_stream(tri.device).cuda_stream
+        err = lib.raster_uv_launch(
+            tri.data_ptr(), uvt.data_ptr(), bins.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), tri.shape[0], bins.shape[1],
+            height, width, grid_h, grid_w, stream)
+        _check(lib, err, 'launch')
+    RASTER_UV.launches += 1
+    return out
+
+
+def rasterize_uv_cuda(verts_dst, tris, uv, height: int, width: int,
+                      device) -> torch.Tensor:
+    """The counterpart of `rasterize_uv_pallas`: bin the mesh on the host,
+    upload the tables, launch the kernel.  verts_dst [V,2] px, tris [T,3]
+    int (rows with a negative first index are padding), uv [V,2]; numpy
+    arrays or CPU tensors.  Returns the [H,W,2] UV map on `device`, which
+    must be a CUDA device."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        raise ValueError(f'rasterize_uv_cuda: {device} is not a CUDA device; '
+                         'on the CPU use ops.warp.rasterize_uv')
+    tri, uvt = triangle_tables(np.asarray(verts_dst), np.asarray(tris),
+                               np.asarray(uv))
+    bins, counts, _, _, _ = bin_with_retry(tri, height, width)
+    up = lambda a: torch.from_numpy(a).to(device)
+    return rasterize_binned_cuda(up(tri), up(uvt), up(bins), up(counts),
+                                 height, width)

@@ -12,7 +12,8 @@
 # public ones run under torch.inference_mode.  The editor runs on one CUDA
 # device unless the caller asks for the CPU: with no card and no explicit
 # device it raises rather than fall back.
-# Not ported yet: crop_face, get_hair_color, generate_*, shape transfer.
+# The session on top of it is pipeline/backend.Backend.
+# Not ported yet: crop_face, get_hair_color, generate_*.
 
 from __future__ import annotations
 
@@ -275,6 +276,36 @@ class HairEditor(nn.Module):
     @torch.inference_mode()
     def parse(self, img_u8) -> torch.Tensor:
         return self._parse(self._as(img_u8, torch.uint8))
+
+    @torch.inference_mode()
+    def encode_shape(self, label):
+        """[N,S,S] label -> (shape_code [N,16], face_code [N,1024])."""
+        return self._encode_shape(self._as(label, torch.int32))
+
+    @torch.inference_mode()
+    def decode_mask(self, shape_code, face_code) -> torch.Tensor:
+        """codes -> [N,S,S] int32 label."""
+        return self._decode_mask(self._as(shape_code, torch.float32),
+                                 self._as(face_code, torch.float32))
+
+    @torch.inference_mode()
+    def edit_render(self, sean_codes, label, latent: Latent,
+                    feature=None) -> torch.Tensor:
+        """The render without the blend -> [N,S,S,3] in [-1,1]."""
+        if feature is not None:
+            feature = self._as(feature, torch.float32)
+        return self._edit_render(self._as(sean_codes, torch.float32),
+                                 self._as(label, torch.int32),
+                                 self._latent(latent), feature)
+
+    @torch.inference_mode()
+    def blend(self, face_img_u8, gen_img_f, face_label,
+              target_label) -> torch.Tensor:
+        """Poisson-blend a render onto the face -> [N,S,S,3] uint8."""
+        return self._blend(self._as(face_img_u8, torch.uint8),
+                           self._as(gen_img_f),
+                           self._as(face_label, torch.int32),
+                           self._as(target_label, torch.int32))
 
     @torch.inference_mode()
     def analyze_tail(self, img_u8, label512) -> Dict[str, object]:

@@ -1,6 +1,6 @@
-# Card-only tests of the PyTorch port: the masked-CG CUDA kernel against its
-# plain version, and the float32 slice on the card against the same slice
-# on the CPU.  They skip without a CUDA device.  This file imports nothing of
+# Card-only tests of the PyTorch port: the masked-CG and UV-rasteriser CUDA
+# kernels against their plain versions, the warp's kernel route, and the
+# float32 slice on the card against the same slice on the CPU.  They skip without a CUDA device.  This file imports nothing of
 # JAX, so on a machine with a card and no JAX it runs without the suite's
 # conftest:
 #     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,6 +12,9 @@ from ctrlhair_tpu_torch import config as C
 from ctrlhair_tpu_torch.ops.poisson import blend_system, decode_solution
 from ctrlhair_tpu_torch.ops.poisson_pallas import (
     MASKED_CG, masked_cg, masked_cg_plain)
+from ctrlhair_tpu_torch.ops import raster_pallas as rp
+from ctrlhair_tpu_torch.ops import warp
+from ctrlhair_tpu_torch.ops.landmarks import canonical_template_81
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 
 
@@ -72,3 +75,74 @@ def test_tiny_slice_on_card_matches_cpu(card):
     assert MASKED_CG.launches == before + 1
     d = (got - cpu.output(*args).int()).abs()
     assert (d <= 1).float().mean() >= 0.999
+
+
+def warp_mesh_case(name):
+    """(verts_dst, tris, uv, size): the warp mesh of a 512 px transfer at
+    672 px, the 5-point mesh of tests/test_raster_pallas.py at 64 px, or no
+    triangle at all."""
+    if name == 'session':
+        lm = canonical_template_81().astype(np.float64)
+        sel = warp.CHOSEN_LANDMARKS
+        src = lm[sel] * 512 + warp.BG_PAD
+        dst = (lm[sel] * [0.9, 0.95] + [0.06, 0.01]) * 512 + warp.BG_PAD
+        size = 512 + 2 * warp.BG_PAD
+        verts, vdst, tris = warp.build_warp_mesh(src, dst, size, size)
+    elif name == 'five_point':
+        size = 64
+        src = np.array([[16, 16], [size - 16, 16], [16, size - 16],
+                        [size - 16, size - 16], [size / 2, size / 2]], float)
+        verts, vdst, tris = warp.build_warp_mesh(
+            src, src + np.array([3.0, -2.0]), size, size, use_arap=False)
+    else:
+        size = 32
+        verts = vdst = np.zeros((3, 2))
+        tris = np.full((64, 3), -1, np.int32)
+    return vdst, tris, verts / size, size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['session', 'five_point', 'empty'])
+def test_raster_uv_kernel_matches_plain(card, name):
+    """float32 on the card: >= 99.5% of pixels within 1e-4 and a median
+    difference < 1e-6 (a pixel on a shared edge may go to either triangle);
+    with no triangle the identity UV is exact."""
+    vdst, tris, uv, size = warp_mesh_case(name)
+    before = rp.RASTER_UV.launches
+    got = rp.rasterize_uv_cuda(vdst, tris, uv, size, size, card)
+    torch.cuda.synchronize()
+    assert rp.RASTER_UV.launches == before + 1
+    up = lambda a, dt: torch.as_tensor(a, dtype=dt, device=card)
+    want = warp.rasterize_uv(up(vdst, torch.float32), up(tris, torch.int64),
+                             up(uv, torch.float32), size, size)
+    assert got.shape == want.shape == (size, size, 2)
+    d = (got - want).abs()
+    if name == 'empty':
+        assert float(d.max()) == 0.0
+    assert float((d < 1e-4).float().mean()) >= 0.995
+    assert float(d.median()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_warp_on_card_launches_kernel_and_matches_host(card):
+    """raster=None on CUDA tensors is the kernel route; its composite agrees
+    with the host C++ route on >= 99.9% of pixels."""
+    hair = np.zeros((512, 512), np.int32)
+    hair[40:260, 90:430] = 13
+    face = np.ones((512, 512), np.int32)
+    face[200:380, 150:350] = 13
+    lm = canonical_template_81()
+    lm2 = lm.copy()
+    lm2[:, 0] += 0.04
+    lm2[:, 1] -= 0.02
+    before = rp.RASTER_UV.launches
+    got = warp.hair_mask_transfer_warp(
+        torch.tensor(hair, device=card), torch.tensor(face, device=card),
+        lm, lm2, out_size=256)
+    torch.cuda.synchronize()
+    assert rp.RASTER_UV.launches == before + 1
+    assert got.device == card and got.shape == (256, 256)
+    host = warp.hair_mask_transfer_warp(hair, face, lm, lm2, out_size=256,
+                                        raster='host')
+    assert rp.RASTER_UV.launches == before + 1
+    assert (got.cpu().numpy() == host).mean() >= 0.999
