@@ -12,9 +12,12 @@ Drives the port's two paths at the full default PipelineConfig() width
      ctrlhair_tpu_torch.pipeline.backend.Backend.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
-version on the card, shows from the launch counts, set to 0 before each
-path and read after it, that the paths ran through the kernels, and times
-kernels and stages with CUDA events and torch.cuda.synchronize().  It
+version on the card (the masked CG on shapes that take its cluster kernel
+and on one that takes its grid kernel, with a second launch that must be
+bit-identical), shows from the launch counts, set to 0 before each path and
+read after it, that the paths ran through the kernels and that every blend
+took the cluster kernel, and times kernels and stages with CUDA events, the
+profiler and torch.cuda.synchronize().  It
 checks what comes out: uint8 images of the expected shape; for the
 request under an edited hair mask, a finite solution that rounds to the session's output, a CG residual cut at least
 a hundredfold, and a face that moves from the input only by the seam
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +62,9 @@ CG_FLOPS_PER_ELEMENT = 17
 RASTER_WITHIN, RASTER_MEDIAN = 0.995, 1e-6
 # the warp's kernel route against its host route: share of equal labels
 ROUTES_AGREE = 0.999
+# masked CG against its plain version: on [0,255] after the decode, and on
+# pinned pixels against the target (the bars of the JAX blend test)
+CG_BAR, CG_PINNED_BAR = 0.5, 6e-3
 
 
 def log(msg: str) -> None:
@@ -141,21 +148,20 @@ def bound_ms(n_bytes: float, flops: float):
     return bytes_s * 1e3, 'bytes'
 
 
-def raster_uv_work(tri: np.ndarray, counts: np.ndarray, height: int,
+def raster_uv_work(n_tris: int, counts: np.ndarray, height: int,
                    width: int, max_bin: int):
     """(bytes, float operations) one UV map of these tables needs at least:
-    the six floats of every row of both triangle tables (24 B of the 32 B
-    row; the rest is padding the kernel never loads), the count of every
-    tile and the `counts[tile]` indices the tile walks (not the padded
-    `max_bin` slots of the bin table) read once, the map written once; per
-    pixel every triangle binned to its tile tested once (3 edge functions
-    of 6 operations: 18) and one barycentric UV (3 + 10), plus the identity
-    UV (2)."""
+    the 14 floats of every triangle row (56 B of the 64 B row; the rest is
+    padding), one offset per tile and one more, and the `counts[tile]`
+    indices the tile walks read once, the map written once; per pixel every
+    triangle binned to its tile tested once (3 edge functions of 6
+    operations: 18) and one barycentric UV (3 + 10), plus the identity UV
+    (2)."""
     from ctrlhair_tpu_torch.ops.raster_pallas import TILE_H, TILE_W
     if int(counts.max(initial=0)) > max_bin:
         raise AssertionError('a tile holds more indices than its budget')
-    n_bytes = (2 * tri.shape[0] * 24 + int(counts.sum()) * 4
-               + counts.size * 4 + height * width * 2 * 4)
+    n_bytes = (n_tris * 56 + int(counts.sum()) * 4 + (counts.size + 1) * 4
+               + height * width * 2 * 4)
     rows = np.minimum(TILE_H, height - np.arange(-(-height // TILE_H))
                       * TILE_H)
     cols = np.minimum(TILE_W, width - np.arange(-(-width // TILE_W))
@@ -163,6 +169,43 @@ def raster_uv_work(tri: np.ndarray, counts: np.ndarray, height: int,
     pixels = (rows[:, None] * cols[None, :]).ravel()
     flops = int((pixels * counts).sum()) * 18 + height * width * (13 + 2)
     return int(n_bytes), flops
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{kernel entry: {'registers', 'spill_bytes', 'stack_bytes',
+    'smem_bytes'}} from nvcc's `-Xptxas -v` output."""
+    report, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {'registers': None, 'spill_bytes': 0,
+                            'stack_bytes': 0, 'smem_bytes': 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            report[name]['stack_bytes'] = int(m.group(1))
+            report[name]['spill_bytes'] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            report[name]['registers'] = int(m.group(1))
+            m = re.search(r'(\d+) bytes smem', line)
+            if m:
+                report[name]['smem_bytes'] = int(m.group(1))
+    return report
+
+
+def kernel_entry(report: dict, *parts: str) -> dict:
+    """The one entry of `ptxas_report` whose mangled name holds all of
+    `parts`."""
+    found = [v for k, v in report.items() if all(p in k for p in parts)]
+    if len(found) != 1:
+        raise AssertionError(f'{len(found)} ptxas entries match {parts}: '
+                             f'{sorted(report)}')
+    return found[0]
 
 
 def phase_build():
@@ -188,6 +231,20 @@ def phase_build():
                 log(f'[build] {line.strip()}')
     for lib in libs:
         lib.lib()           # load and declare, so a bad build fails here
+    cg_report = ptxas_report(MASKED_CG.build_log())
+    ptxas = {
+        'masked_cg_cluster': kernel_entry(cg_report,
+                                          'masked_cg_cluster_kernel'),
+        'masked_cg_grid': kernel_entry(cg_report, '16masked_cg_kernel'),
+        'raster_uv': kernel_entry(ptxas_report(RASTER_UV.build_log()),
+                                  'raster_uv_kernel'),
+    }
+    for name in ptxas:
+        if ptxas[name]['spill_bytes'] != 0 or ptxas[name]['registers'] is None:
+            raise AssertionError(f'ptxas: {name} spills or was not reported: '
+                                 f'{ptxas[name]}')
+    log(f'[build] ptxas: {json.dumps(ptxas)}')
+    return ptxas
 
 
 def make_image(rng: np.random.Generator, size: int) -> np.ndarray:
@@ -352,17 +409,143 @@ def phase_reference(cfg_mod, seed):
             'backend_warp_equal': warp_eq, 'backend_within_1_step': b_worst}
 
 
-def centre_block_case(size, rng, device):
+def centre_block_case(size, rng, device, n=1, width=None):
     """The centre-block case of the JAX package's Pallas blend test, at the
-    edit size: uniform source and target, the target kept in the centre."""
-    src = torch.as_tensor(rng.uniform(0, 255, (1, size, size, 3)),
+    edit size (or n images of size x width): uniform source and target, the
+    target kept in the centre."""
+    width = size if width is None else width
+    src = torch.as_tensor(rng.uniform(0, 255, (n, size, width, 3)),
                           dtype=torch.float32, device=device)
-    tgt = torch.as_tensor(rng.uniform(0, 255, (1, size, size, 3)),
+    tgt = torch.as_tensor(rng.uniform(0, 255, (n, size, width, 3)),
                           dtype=torch.float32, device=device)
-    mask = torch.ones((1, size, size), device=device)
-    lo, hi = size // 4, size * 3 // 4
-    mask[:, lo:hi, lo:hi] = 0.0
+    mask = torch.ones((n, size, width), device=device)
+    mask[:, size // 4:size * 3 // 4, width // 4:width * 3 // 4] = 0.0
     return src, tgt, mask
+
+
+def phase_masked_cg(editor, a_in, lat, img_in, hair_label, alphas):
+    """K1 against its plain version on the card, float32, on the systems of
+    the session's edited-mask request and sweep and on synthetic systems
+    that take each route; two launches on one input; then its times.
+    Returns the kernel's entry for the kernels line, without the launch
+    counts."""
+    from ctrlhair_tpu_torch.ops import poisson_pallas as pp
+    from ctrlhair_tpu_torch.ops.poisson import blend_system, decode_solution
+    dev, s = editor.device, editor.cfg.edit_size
+    iters = editor.cfg.poisson_iterations
+    plan = pp.cluster_plan(3, s, s)
+    if plan is None:
+        raise AssertionError(f'no cluster plan for the edit size {s}')
+    active = pp.active_clusters(dev.index or 0, plan.threads)
+    log(f'[kernel] masked_cg cluster of {pp.CLUSTER_SIZE}: bands of '
+        f'{plan.rows} rows, {plan.threads} threads and {plan.smem_bytes} B of '
+        f'shared memory a block, {active} clusters at once on this card')
+    rng = np.random.default_rng(7)
+    with torch.inference_mode():
+        cases = {
+            'blend_n1': blend_case(editor, a_in, lat, img_in, hair_label,
+                                   None),
+            'blend_n8': blend_case(editor, a_in, lat, img_in, hair_label,
+                                   alphas),
+            'centre_block': centre_block_case(s, rng, dev),
+            'more_than_clusters': centre_block_case(s, rng, dev,
+                                                    n=active + 3),
+            'ragged': centre_block_case(40, rng, dev, n=2, width=72),
+            'grid_route': centre_block_case(512, rng, dev),
+        }
+        systems = {k: blend_system(*v) for k, v in cases.items()}
+        max_err, routes = 0.0, {}
+        for name, (b, u, x0, fixed, tgt_s, gamma) in systems.items():
+            want_route = pp.masked_cg_route(*b.shape[1:])
+            if (name == 'grid_route') != (want_route == 'grid'):
+                raise AssertionError(f'{name} {tuple(b.shape)} would take '
+                                     f'the {want_route} route')
+            before = dict(pp.ROUTE_LAUNCHES)
+            x = pp.masked_cg_cuda(b, u, x0, iters)
+            took = [r for r in before
+                    if pp.ROUTE_LAUNCHES[r] == before[r] + 1]
+            if took != [want_route]:
+                raise AssertionError(f'{name}: launched {took}, the shape '
+                                     f'says {want_route}')
+            routes[name] = want_route
+            again = pp.masked_cg_cuda(b, u, x0, iters)
+            torch.cuda.synchronize()
+            if not torch.equal(x, again):
+                raise AssertionError(f'masked_cg {name}: two launches on one '
+                                     'input differ')
+            got = decode_solution(x, fixed, tgt_s, gamma)
+            want = decode_solution(pp.masked_cg_plain(b, u, x0, iters), fixed,
+                                   tgt_s, gamma)
+            err = float((got - want).abs().max())
+            # pinned pixels come back as the target through the gamma
+            # encode and decode
+            keep = fixed[:, 0]
+            tgt_raw = cases[name][1]
+            ident = float((got[keep] - tgt_raw[keep]).abs().max()) \
+                if keep.any() else 0.0
+            log(f'[kernel] masked_cg {name} {tuple(b.shape)} by the '
+                f'{want_route} route: max |kernel - plain| {err:.6f} on '
+                f'[0,255]; {int(keep.sum())} pinned pixels vs target '
+                f'{ident:.2e}; a second launch bit-identical')
+            if not (err <= CG_BAR and ident <= CG_PINNED_BAR
+                    and torch.isfinite(x).all()):
+                raise AssertionError(f'masked_cg disagrees on {name}')
+            max_err = max(max_err, err)
+
+        # times: the cluster kernel and the grid kernel, taken in this
+        # order within one run
+        timed = {}
+        for name in ('blend_n1', 'blend_n8'):
+            b, u, x0 = systems[name][:3]
+            ship = lambda: pp.masked_cg_cuda(b, u, x0, iters)
+            t = {
+                'ms': cuda_ms(ship, 20),
+                'device_ms': kernel_device_ms(
+                    ship, 'masked_cg_cluster_kernel', 10),
+                'previous_device_ms': kernel_device_ms(
+                    lambda: pp.masked_cg_grid_cuda(b, u, x0, iters),
+                    'masked_cg_kernel', 10),
+                'plain_ms': cuda_ms(
+                    lambda: pp.masked_cg_plain(b, u, x0, iters), 3),
+            }
+            t['bound_ms'], t['bound_by'] = masked_cg_bound_ms(*b.shape,
+                                                              iters)
+            timed[name] = t
+            log(f'[time] masked_cg {name} {tuple(b.shape)}: cluster of '
+                f'{pp.CLUSTER_SIZE} {t["ms"]:.4f} ms by CUDA events, '
+                f'{t["device_ms"]:.4f} ms on the card by the profiler; '
+                f'the grid kernel {t["previous_device_ms"]:.4f} ms '
+                f'on the card; plain {t["plain_ms"]:.4f} ms; bound '
+                f'{t["bound_ms"]:.6f} ms ({t["bound_by"]})')
+        # the yardstick of the dependency chain: one cluster passing 2
+        # barriers an iteration and doing nothing else
+        probe = 4000
+        barrier_us = kernel_device_ms(
+            lambda: pp.barrier_probe_cuda(plan.threads, probe, dev),
+            'cluster_barrier_probe', 5) * 1e3 / probe
+        log(f'[time] one cluster barrier ({pp.CLUSTER_SIZE} blocks of '
+            f'{plan.threads} threads): {barrier_us:.4f} us; {2 * iters} of '
+            f'them {2 * iters * barrier_us / 1e3:.4f} ms')
+    n1, n8 = timed['blend_n1'], timed['blend_n8']
+    entry = {
+        'max_abs_err': max_err, 'max_abs_vs_plain': max_err,
+        'ms': n1['ms'], 'kernel_ms': n1['ms'], 'device_ms': n1['device_ms'],
+        'plain_ms': n1['plain_ms'], 'bound_ms': n1['bound_ms'],
+        'bound_by': n1['bound_by'], 'bound_us': n1['bound_ms'] * 1e3,
+        'library_ms': None,
+        'case': {
+            'shape': [1, 3, s, s], 'iterations': iters, 'routes': routes,
+            'cluster_size': pp.CLUSTER_SIZE, 'active_clusters': active,
+            'smem_bytes_per_block': plan.smem_bytes,
+            'threads_per_block': plan.threads,
+            'previous_device_ms': {'n1': n1['previous_device_ms'],
+                                   'n8': n8['previous_device_ms']},
+            'barrier_us': barrier_us,
+            'barriers_ms': 2 * iters * barrier_us / 1e3,
+            'n8': {k: n8[k] for k in ('ms', 'device_ms', 'plain_ms',
+                                      'bound_ms')}},
+    }
+    return entry
 
 
 def paint_face(size: int, cx: float, cy: float, scale: float,
@@ -503,7 +686,9 @@ def check_backend_session(be, outs, parses):
 def raster_cases(be):
     """(name, verts_dst, tris, uv, size) for the kernel's comparison: the
     Backend session's own warp mesh at parse size + 2 * BG_PAD, the 5-point
-    mesh of the JAX package's rasteriser test at 64 px, and no triangle."""
+    mesh of the JAX package's rasteriser test at 64 px, no triangle, and a
+    seeded soup of 900 large triangles at 96 px that puts more than 256 in
+    a tile."""
     from ctrlhair_tpu_torch.ops import warp
     p = be.cfg.bisenet.input_size
     big = p + 2 * warp.BG_PAD
@@ -519,6 +704,10 @@ def raster_cases(be):
     yield 'five_point', vdst, tris, verts / 64, 64
     yield ('empty', np.zeros((3, 2)), np.full((64, 3), -1, np.int32),
            np.zeros((3, 2)), 32)
+    rng = np.random.default_rng(3)
+    verts = rng.uniform(0, 96, (400, 2))
+    yield ('crowded', verts + rng.normal(0, 1.5, verts.shape),
+           rng.integers(0, 400, (900, 3)).astype(np.int32), verts / 96, 96)
 
 
 def phase_raster_kernel(be):
@@ -529,7 +718,7 @@ def phase_raster_kernel(be):
     from ctrlhair_tpu_torch.ops import warp
     dev = be.device
     up = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
-    max_err, entry, mesh = 0.0, {}, None
+    max_err, entry, mesh, bit_equal = 0.0, {}, None, {}
     for name, vdst, tris, uv, size in raster_cases(be):
         got = rp.rasterize_uv_cuda(vdst, tris, uv, size, size, dev)
         want = warp.rasterize_uv(up(vdst, torch.float32),
@@ -539,28 +728,42 @@ def phase_raster_kernel(be):
         d = (got - want).abs()
         within = float((d < 1e-4).float().mean())
         median, worst = float(d.median()), float(d.max())
-        equal = float((d == 0).float().mean())
-        log(f'[kernel] raster_uv {name} {size}x{size}, '
-            f'{int((np.asarray(tris)[:, 0] >= 0).sum())} triangles: within '
-            f'1e-4 on {within:.5f} of pixels, bit-equal on {equal:.5f}, '
-            f'median {median:.2e}, max {worst:.2e}')
+        bit_equal[name] = float((d == 0).float().mean())
+        tri, uvt = rp.triangle_tables(vdst, tris, uv)
+        offsets, indices, gh, gw, max_bin = rp.bin_with_retry(tri, size,
+                                                              size)
+        counts = np.diff(offsets)
+        log(f'[kernel] raster_uv {name} {size}x{size}, {tri.shape[0]} '
+            f'triangles, at most {counts.max(initial=0)} in a tile (budget '
+            f'{max_bin}): within 1e-4 on {within:.5f} of pixels, bit-equal '
+            f'on {bit_equal[name]:.5f}, median {median:.2e}, max '
+            f'{worst:.2e}')
         if not (within >= RASTER_WITHIN and median < RASTER_MEDIAN
                 and torch.isfinite(got).all()):
             raise AssertionError(f'raster_uv disagrees on {name}')
         if name == 'empty' and worst != 0.0:
             raise AssertionError('raster_uv: the identity UV is not exact')
+        if name == 'crowded' and max_bin <= rp.MAX_BIN:
+            raise AssertionError('the crowded case stayed within the first '
+                                 'triangle budget')
         max_err = max(max_err, worst)
         if name != 'session':
             continue
         mesh = (vdst, tris, uv, size)
-        tri, uvt = rp.triangle_tables(vdst, tris, uv)
-        bins, counts, _, _, max_bin = rp.bin_with_retry(tri, size, size)
-        n_bytes, flops = raster_uv_work(tri, counts, size, size, max_bin)
-        tabs = [torch.from_numpy(a).to(dev) for a in (tri, uvt, bins,
-                                                      counts)]
+        n_bytes, flops = raster_uv_work(tri.shape[0], counts, size, size,
+                                        max_bin)
+        words = torch.from_numpy(rp.pack_tables(
+            rp.triangle_rows(tri, uvt), offsets, indices)).to(dev)
+        tabs = rp.unpack_tables(words, tri.shape[0], gh * gw)
         args = (up(vdst, torch.float32), up(tris, torch.int64),
                 up(uv, torch.float32), size, size)
         b_ms, b_by = bound_ms(n_bytes, flops)
+        resident = rp.resident_blocks(dev)
+        empty_ms = kernel_device_ms(lambda: rp.empty_launch_cuda(dev),
+                                    'empty_kernel', 20)
+        if gh * gw > resident:
+            raise AssertionError(f'{gh * gw} tiles do not fit the '
+                                 f'{resident} blocks the card holds at once')
         entry = {
             'ms': cuda_ms(lambda: rp.rasterize_binned_cuda(*tabs, size,
                                                            size), 50),
@@ -575,15 +778,26 @@ def phase_raster_kernel(be):
                 'max_bin': max_bin, 'bytes': n_bytes, 'flops': flops,
                 'indices_binned': int(counts.sum()),
                 'mean_triangles_per_tile': float(counts.mean()),
-                'max_triangles_per_tile': int(counts.max())},
+                'max_triangles_per_tile': int(counts.max()),
+                'tile': [rp.TILE_H, rp.TILE_W],
+                'blocks_launched': gh * gw, 'blocks_resident': resident,
+                'empty_kernel_ms': empty_ms,
+                'upload_bytes': int(words.numel() * 4)},
         }
         entry['kernel_ms'] = entry['ms']
         log(f'[time] raster_uv {size}x{size}, {tri.shape[0]} triangles, '
-            f'{counts.mean():.1f} per tile (max {counts.max()}): kernel '
-            f'{entry["ms"]:.4f} ms per call by CUDA events (the wrapper\'s '
-            f'host cost included), {entry["device_ms"]:.4f} ms on the card '
-            f'by the profiler; plain {entry["plain_ms"]:.4f} ms, bound '
-            f'{b_ms:.6f} ms ({b_by})')
+            f'{counts.mean():.1f} per {rp.TILE_H}x{rp.TILE_W} tile (max '
+            f'{counts.max()}), {gh * gw} blocks of {resident} resident, '
+            f'{words.numel() * 4} B uploaded: kernel {entry["ms"]:.4f} ms '
+            'per call by CUDA events (the wrapper\'s host cost included), '
+            f'{entry["device_ms"]:.4f} ms on the card by the profiler (an '
+            f'empty kernel {empty_ms:.5f} ms); plain '
+            f'{entry["plain_ms"]:.4f} ms, bound {b_ms:.6f} ms ({b_by})')
+    for name in ('session', 'five_point', 'empty'):
+        if bit_equal[name] != 1.0:
+            raise AssertionError(f'raster_uv {name}: bit-equal to the plain '
+                                 f'version on {bit_equal[name]} of pixels')
+    entry['case']['bit_equal'] = bit_equal
     entry['max_abs_err'] = entry['max_abs_vs_plain'] = max_err
     return entry, mesh
 
@@ -643,9 +857,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from ctrlhair_tpu_torch import config as cfg_mod
-    from ctrlhair_tpu_torch.ops.poisson import blend_system, decode_solution
     from ctrlhair_tpu_torch.ops.poisson_pallas import (
-        MASKED_CG, masked_cg_cuda, masked_cg_plain)
+        MASKED_CG, ROUTE_LAUNCHES)
     from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
     from ctrlhair_tpu_torch.pipeline.backend import Backend
     from ctrlhair_tpu_torch.pipeline.editor import HairEditor
@@ -656,7 +869,7 @@ def main() -> int:
         f'count {torch.cuda.device_count()}')
 
     # 1. build
-    phase_build()
+    ptxas = phase_build()
 
     # 2. full float32 arithmetic for every comparison below
     torch.backends.cudnn.allow_tf32 = False
@@ -687,12 +900,16 @@ def main() -> int:
     img_tg = make_image(rng, s)
     alphas = np.linspace(0.0, 1.0, 8, dtype=np.float32)
     MASKED_CG.launches = RASTER_UV.launches = 0
+    ROUTE_LAUNCHES.update(cluster=0, grid=0)
     with torch.inference_mode():
         a_in, lat, hair_label, outs, hair_px = session(
             editor, img_in, img_tg, alphas)
     torch.cuda.synchronize()
     launches = MASKED_CG.launches
     raster_launches = RASTER_UV.launches
+    if ROUTE_LAUNCHES != {'cluster': launches, 'grid': 0}:
+        raise AssertionError('the editor\'s session did not take the cluster '
+                             f'route on every blend: {ROUTE_LAUNCHES}')
     log(f'[session] 2 analyses, 4 outputs, 1 refresh, 1 sweep of '
         f'{len(alphas)}: masked_cg launches {launches}, raster_uv launches '
         f'{raster_launches}; hair pixels in the input label {hair_px}')
@@ -719,11 +936,15 @@ def main() -> int:
         'scaled) are painted on the card and put into the Backend\'s '
         'cached parses before the shape transfer')
     MASKED_CG.launches = RASTER_UV.launches = 0
+    ROUTE_LAUNCHES.update(cluster=0, grid=0)
     b_outs, blends, transfers, parses = backend_session(
         backend, img_in, img_tg, alphas)
     torch.cuda.synchronize()
     b_launches = {'masked_cg': MASKED_CG.launches,
                   'raster_uv': RASTER_UV.launches}
+    if ROUTE_LAUNCHES != {'cluster': b_launches['masked_cg'], 'grid': 0}:
+        raise AssertionError('the Backend session did not take the cluster '
+                             f'route on every blend: {ROUTE_LAUNCHES}')
     log(f'[backend] session: 2 photos, 11 slider moves, colour, texture and '
         f'{transfers} shape transfers, {blends} blends (one a sweep of '
         f'{len(alphas)}): launches {b_launches}')
@@ -733,60 +954,15 @@ def main() -> int:
                              'shape transfers')
     warp_check = check_backend_session(backend, b_outs, parses)
 
-    # 5. the kernel against its plain version on the card, float32, on the
-    # systems of the session's edited-mask request and sweep
-    iters = cfg.poisson_iterations
-    with torch.inference_mode():
-        cases = {
-            'blend_n1': blend_case(editor, a_in, lat, img_in, hair_label,
-                                   None),
-            'blend_n8': blend_case(editor, a_in, lat, img_in, hair_label,
-                                   alphas),
-            'centre_block': centre_block_case(s, np.random.default_rng(7),
-                                              editor.device),
-        }
-        systems = {k: blend_system(*v) for k, v in cases.items()}
-        max_err = 0.0
-        for name, (b, u, x0, fixed, tgt_s, gamma) in systems.items():
-            got = decode_solution(masked_cg_cuda(b, u, x0, iters), fixed,
-                                  tgt_s, gamma)
-            want = decode_solution(masked_cg_plain(b, u, x0, iters), fixed,
-                                   tgt_s, gamma)
-            err = float((got - want).abs().max())
-            # the JAX blend test's identity bar: pinned pixels come back as
-            # the target through the gamma encode and decode
-            keep = fixed[:, 0]
-            tgt_raw = cases[name][1]
-            ident = float((got[keep] - tgt_raw[keep]).abs().max()) \
-                if keep.any() else 0.0
-            log(f'[kernel] masked_cg {name} N={b.shape[0]}: max |kernel - '
-                f'plain| {err:.6f} on [0,255]; {int(keep.sum())} pinned '
-                f'pixels vs target {ident:.2e}')
-            if err > 0.5 or ident > 6e-3:
-                raise AssertionError(f'masked_cg disagrees on {name}')
-            max_err = max(max_err, err)
-
-    # 5b. K2 against its plain version, and the warp's two routes
+    # 5. K1 against its plain version and its times; 5b. K2 against its
+    # plain version, and the warp's two routes
+    cg_entry = phase_masked_cg(editor, a_in, lat, img_in,
+                                         hair_label, alphas)
     raster_entry, mesh = phase_raster_kernel(backend)
     routes_check, backend_ms = phase_warp_routes(backend, parses, mesh)
 
-    # 6. timings
+    # 6. stage timings
     with torch.inference_mode():
-        times = {}
-        for name in ('blend_n1', 'blend_n8'):
-            b, u, x0 = systems[name][:3]
-            times[name] = (
-                cuda_ms(lambda: masked_cg_cuda(b, u, x0, iters), 20),
-                cuda_ms(lambda: masked_cg_plain(b, u, x0, iters), 3),
-                masked_cg_bound_ms(*b.shape, iters),
-                kernel_device_ms(lambda: masked_cg_cuda(b, u, x0, iters),
-                                 'masked_cg_kernel', 10))
-            log(f'[time] masked_cg {name} {tuple(b.shape)}: kernel '
-                f'{times[name][0]:.4f} ms by CUDA events, '
-                f'{times[name][3]:.4f} ms on the card by the profiler, plain '
-                f'{times[name][1]:.4f} ms, '
-                f'bound {times[name][2][0]:.6f} ms '
-                f'({times[name][2][1]})')
         face = img_in[None]
         codes, label, regen = (a_in['sean_codes'], a_in['label'],
                                hair_label)
@@ -817,8 +993,9 @@ def main() -> int:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip()
-    k1, p1, (bound1, bound_by), d1 = times['blend_n1']
-    k8, p8, (bound8, _), d8 = times['blend_n8']
+    cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
+                                 if k.startswith('masked_cg')}
+    raster_entry['case']['ptxas'] = ptxas['raster_uv']
     kernels = [{
         'name': 'masked_cg', 'route': 'cuda',
         'source': 'ctrlhair_tpu_torch/csrc/masked_cg.cu',
@@ -826,14 +1003,7 @@ def main() -> int:
         'launches': launches + b_launches['masked_cg'],
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg']},
-        'max_abs_err': max_err, 'ms': k1, 'device_ms': d1,
-        'plain_ms': p1, 'bound_ms': bound1, 'bound_by': bound_by,
-        'library_ms': None,
-        'max_abs_vs_plain': max_err, 'kernel_ms': k1,
-        'bound_us': bound1 * 1e3,
-        'case': {'shape': [1, 3, s, s], 'iterations': iters,
-                 'n8': {'ms': k8, 'device_ms': d8, 'plain_ms': p8,
-                        'bound_ms': bound8}},
+        **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
         'source': 'ctrlhair_tpu_torch/csrc/raster_uv.cu',

@@ -4,8 +4,9 @@
 # path): the TPU kernel `_kernel`, launched by `_rasterize_binned`, becomes
 # the hand-written CUDA kernel csrc/raster_uv.cu, one launch per UV map,
 # whose source note gives its design.  The triangles are binned per pixel
-# tile on the host (the mesh is built there anyway), so a tile walks only
-# the triangles whose bounding box meets it, in ascending triangle index:
+# tile on the host (the mesh is built there anyway) into one packed index
+# array with an offset per tile, so a tile walks only the triangles whose
+# bounding box meets it, in ascending triangle index:
 # "first hit wins" then names the same triangle as in the plain version,
 # ops/warp.rasterize_uv, which walks the whole list in order.
 # `rasterize_uv_cuda` launches the kernel on CUDA tensors or raises; there
@@ -21,7 +22,7 @@ import torch
 
 from ctrlhair_tpu_torch.utils.cuda_build import CudaKernel
 
-# the pixel tile of one CTA (csrc/raster_uv.cu: RASTER_TILE_H/W)
+# the pixel tile of one block (csrc/raster_uv.cu: RASTER_TILE_H/W)
 TILE_H = 16
 TILE_W = 32
 MAX_BIN = 256          # triangle budget per tile; doubles up to 4x
@@ -29,11 +30,15 @@ MAX_BIN = 256          # triangle budget per tile; doubles up to 4x
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.raster_uv_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, i32, i32, ptr]
+    lib.raster_uv_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                     i32, i32, ptr]
     lib.raster_uv_launch.restype = i32
     lib.raster_uv_tile.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.raster_uv_tile.restype = None
+    lib.raster_uv_resident_blocks.argtypes = [ctypes.POINTER(i32)]
+    lib.raster_uv_resident_blocks.restype = i32
+    lib.raster_uv_empty_launch.argtypes = [ptr]
+    lib.raster_uv_empty_launch.restype = i32
     lib.raster_uv_error_string.argtypes = [i32]
     lib.raster_uv_error_string.restype = ctypes.c_char_p
     th, tw = i32(0), i32(0)
@@ -50,9 +55,10 @@ RASTER_UV = CudaKernel('raster_uv', _declare, extra_flags=('-fmad=false',))
 
 def triangle_tables(verts_dst: np.ndarray, tris: np.ndarray,
                     uv: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-triangle rows for the kernel, padding rows of `tris` (first index
+    """Per-triangle vertices and UVs, padding rows of `tris` (first index
     negative) dropped: (tri [T,8] float32 = ax ay bx by cx cy 0 0,
-    uvt [T,8] float32 = ua va ub vb uc vc 0 0)."""
+    uvt [T,8] float32 = ua va ub vb uc vc 0 0).  The binning reads `tri`;
+    `triangle_rows` makes the kernel's rows of both."""
     verts = np.asarray(verts_dst, np.float32)
     uvf = np.asarray(uv, np.float32)
     tris = np.asarray(tris)
@@ -67,17 +73,38 @@ def triangle_tables(verts_dst: np.ndarray, tris: np.ndarray,
     return tri, uvt
 
 
+def triangle_rows(tri: np.ndarray, uvt: np.ndarray) -> np.ndarray:
+    """The kernel's 64-byte row per triangle, [T,16] float32:
+    ax ay bx by | cx cy s inv_area | ua va ub vb | uc vc 0 0.
+
+    The orientation sign s and the reciprocal area are computed here once
+    per mesh, in float32 with the operations of ops/warp.rasterize_uv in
+    its order (numpy rounds after every operation and fuses nothing), so
+    the kernel's values equal the plain version's bit for bit."""
+    tri = np.asarray(tri, np.float32)
+    ax, ay, bx, by, cx, cy = (tri[:, k] for k in range(6))
+    area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    s = np.where(area >= 0, np.float32(1.0), np.float32(-1.0))
+    inv_area = s / np.maximum(np.abs(area), np.float32(1e-12))
+    rows = np.zeros((len(tri), 16), np.float32)
+    rows[:, 0:6] = tri[:, 0:6]
+    rows[:, 6] = s
+    rows[:, 7] = inv_area
+    rows[:, 8:14] = np.asarray(uvt, np.float32)[:, 0:6]
+    return rows
+
+
 def bin_triangles(tri: np.ndarray, height: int, width: int,
                   max_bin: int = MAX_BIN
                   ) -> Tuple[np.ndarray, np.ndarray, int, int]:
-    """Host tile binning of `triangle_tables`' rows.
+    """Host tile binning of `triangle_tables`' rows, packed.
 
     Every triangle goes to every tile its bounding box meets (tile ranges
     clipped to the grid, as the JAX binning clips them).  Returns
-    (bins [G, max_bin] int32: each tile's triangle indices ascending, -1
-    beyond the count; counts [G] int32; grid_h; grid_w) with
-    G = grid_h*grid_w row-major tiles.  Raises OverflowError when a tile
-    meets more than `max_bin` triangles."""
+    (offsets [G+1] int32, indices [offsets[G]] int32, grid_h, grid_w) with
+    G = grid_h*grid_w row-major tiles: tile g's triangle indices are
+    indices[offsets[g]:offsets[g+1]], ascending.  Raises OverflowError when
+    a tile meets more than `max_bin` triangles."""
     grid_h = -(-height // TILE_H)
     grid_w = -(-width // TILE_W)
     n_tiles = grid_h * grid_w
@@ -99,12 +126,9 @@ def bin_triangles(tri: np.ndarray, height: int, width: int,
         raise OverflowError('per-tile triangle budget exceeded')
     # a stable sort by tile keeps the triangles of a tile ascending
     order = np.argsort(tile, kind='stable')
-    tile_s = tile[order]
-    slot = np.arange(len(tile_s)) - np.repeat(np.cumsum(counts) - counts,
-                                              counts)
-    bins = np.full((n_tiles, max_bin), -1, np.int32)
-    bins[tile_s, slot] = t_idx[order]
-    return bins, counts.astype(np.int32), grid_h, grid_w
+    offsets = np.zeros(n_tiles + 1, np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets, t_idx[order].astype(np.int32), grid_h, grid_w
 
 
 def bin_with_retry(tri: np.ndarray, height: int, width: int):
@@ -127,60 +151,98 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f'raster_uv {what}: CUDA error {err} ({msg})')
 
 
-def rasterize_binned_cuda(tri: torch.Tensor, uvt: torch.Tensor,
-                          bins: torch.Tensor, counts: torch.Tensor,
-                          height: int, width: int) -> torch.Tensor:
-    """One launch of csrc/raster_uv.cu on CUDA tensors -> [H,W,2] float32."""
-    ts = (tri, uvt, bins, counts)
-    if any(t.device.type != 'cuda' or t.device != tri.device for t in ts):
+def resident_blocks(device) -> int:
+    """Blocks of the kernel the card holds at once (a map of no more tiles
+    runs in one wave)."""
+    lib = RASTER_UV.lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(lib, lib.raster_uv_resident_blocks(ctypes.byref(blocks)),
+               'occupancy query')
+    return blocks.value
+
+
+def empty_launch_cuda(device) -> None:
+    """Launch an empty kernel: timed, it is what any launch takes, the
+    yardstick of a kernel whose bound lies below it."""
+    lib = RASTER_UV.lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(lib, lib.raster_uv_empty_launch(stream), 'empty launch')
+
+
+def rasterize_binned_cuda(rows: torch.Tensor, offsets: torch.Tensor,
+                          indices: torch.Tensor, height: int,
+                          width: int) -> torch.Tensor:
+    """One launch of csrc/raster_uv.cu on CUDA tensors -> [H,W,2] float32.
+    rows [T,16] float32 (`triangle_rows`), offsets [G+1] and indices int32
+    (`bin_triangles`)."""
+    ts = (rows, offsets, indices)
+    if any(t.device.type != 'cuda' or t.device != rows.device for t in ts):
         raise ValueError('rasterize_binned_cuda: all tables must lie on one '
                          'CUDA device')
-    if tri.dtype != torch.float32 or uvt.dtype != torch.float32 \
-            or bins.dtype != torch.int32 or counts.dtype != torch.int32:
-        raise TypeError('rasterize_binned_cuda: float32 triangle tables and '
-                        'int32 bins and counts only')
+    if rows.dtype != torch.float32 or offsets.dtype != torch.int32 \
+            or indices.dtype != torch.int32:
+        raise TypeError('rasterize_binned_cuda: float32 triangle rows and '
+                        'int32 offsets and indices only')
     grid_h = -(-height // TILE_H)
     grid_w = -(-width // TILE_W)
-    if tri.dim() != 2 or tri.shape[1] != 8 or uvt.shape != tri.shape \
-            or bins.dim() != 2 or bins.shape[0] != grid_h * grid_w \
-            or bins.shape[1] < 1 or counts.shape != (grid_h * grid_w,):
+    if rows.dim() != 2 or rows.shape[1] != 16 or indices.dim() != 1 \
+            or offsets.shape != (grid_h * grid_w + 1,):
         shapes = [tuple(t.shape) for t in ts]
         raise ValueError(f'rasterize_binned_cuda: {height}x{width} needs '
-                         f'[T,8] tables and {grid_h * grid_w} tiles, got '
+                         f'[T,16] rows and {grid_h * grid_w} tiles, got '
                          f'{shapes}')
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError('rasterize_binned_cuda: contiguous tensors only')
+    if not all(t.is_contiguous() for t in ts) or rows.data_ptr() % 16:
+        raise ValueError('rasterize_binned_cuda: contiguous tensors and '
+                         '16-byte aligned rows only')
     if height < 1 or width < 1 or height * width >= 2 ** 30:
         raise ValueError(f'rasterize_binned_cuda: unsupported size '
                          f'{height}x{width}')
     lib = RASTER_UV.lib()
-    with torch.cuda.device(tri.device):
+    with torch.cuda.device(rows.device):
         out = torch.empty((height, width, 2), dtype=torch.float32,
-                          device=tri.device)
-        stream = torch.cuda.current_stream(tri.device).cuda_stream
+                          device=rows.device)
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.raster_uv_launch(
-            tri.data_ptr(), uvt.data_ptr(), bins.data_ptr(),
-            counts.data_ptr(), out.data_ptr(), tri.shape[0], bins.shape[1],
-            height, width, grid_h, grid_w, stream)
+            rows.data_ptr(), offsets.data_ptr(), indices.data_ptr(),
+            out.data_ptr(), rows.shape[0], indices.shape[0], height, width,
+            grid_h, grid_w, stream)
         _check(lib, err, 'launch')
     RASTER_UV.launches += 1
     return out
 
 
+def pack_tables(rows: np.ndarray, offsets: np.ndarray,
+                indices: np.ndarray) -> np.ndarray:
+    """The three tables as one array of 32-bit words, rows first (so that
+    they stay 16-byte aligned), for one upload per mesh."""
+    return np.concatenate([rows.ravel().view(np.int32), offsets, indices])
+
+
+def unpack_tables(words: torch.Tensor, n_tris: int, n_tiles: int):
+    """Views of `pack_tables`' words, on whatever device they lie:
+    (rows [T,16] float32, offsets [G+1] int32, indices int32)."""
+    r = 16 * n_tris
+    return (words[:r].view(torch.float32).view(n_tris, 16),
+            words[r:r + n_tiles + 1], words[r + n_tiles + 1:])
+
+
 def rasterize_uv_cuda(verts_dst, tris, uv, height: int, width: int,
                       device) -> torch.Tensor:
     """The counterpart of `rasterize_uv_pallas`: bin the mesh on the host,
-    upload the tables, launch the kernel.  verts_dst [V,2] px, tris [T,3]
-    int (rows with a negative first index are padding), uv [V,2]; numpy
-    arrays or CPU tensors.  Returns the [H,W,2] UV map on `device`, which
-    must be a CUDA device."""
+    upload the tables (one array, one copy), launch the kernel.  verts_dst
+    [V,2] px, tris [T,3] int (rows with a negative first index are padding),
+    uv [V,2]; numpy arrays or CPU tensors.  Returns the [H,W,2] UV map on
+    `device`, which must be a CUDA device."""
     device = torch.device(device)
     if device.type != 'cuda':
         raise ValueError(f'rasterize_uv_cuda: {device} is not a CUDA device; '
                          'on the CPU use ops.warp.rasterize_uv')
     tri, uvt = triangle_tables(np.asarray(verts_dst), np.asarray(tris),
                                np.asarray(uv))
-    bins, counts, _, _, _ = bin_with_retry(tri, height, width)
-    up = lambda a: torch.from_numpy(a).to(device)
-    return rasterize_binned_cuda(up(tri), up(uvt), up(bins), up(counts),
-                                 height, width)
+    offsets, indices, grid_h, grid_w, _ = bin_with_retry(tri, height, width)
+    words = torch.from_numpy(
+        pack_tables(triangle_rows(tri, uvt), offsets, indices)).to(device)
+    return rasterize_binned_cuda(
+        *unpack_tables(words, len(tri), grid_h * grid_w), height, width)

@@ -10,6 +10,7 @@ import torch
 
 from ctrlhair_tpu_torch import config as C
 from ctrlhair_tpu_torch.ops.poisson import blend_system, decode_solution
+from ctrlhair_tpu_torch.ops import poisson_pallas as pp
 from ctrlhair_tpu_torch.ops.poisson_pallas import (
     MASKED_CG, masked_cg, masked_cg_plain)
 from ctrlhair_tpu_torch.ops import raster_pallas as rp
@@ -51,6 +52,81 @@ def test_masked_cg_kernel_matches_plain(card, n):
     assert float((got[keep] - tgt[keep]).abs().max()) <= 6e-3
 
 
+def centre_block_system(n, h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    src = torch.tensor(rng.uniform(0, 255, (n, h, w, 3)),
+                       dtype=torch.float32, device=device)
+    tgt = torch.tensor(rng.uniform(0, 255, (n, h, w, 3)),
+                       dtype=torch.float32, device=device)
+    mask = torch.ones((n, h, w), device=device)
+    mask[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = 0.0
+    return blend_system(src, tgt, mask) + (tgt,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,shape,route', [
+    ('more_images_than_clusters', (None, 256, 256), 'cluster'),
+    ('ragged', (2, 40, 72), 'cluster'),
+    ('fewer_rows_than_blocks', (3, 5, 8), 'cluster'),
+    ('tiny_session_size', (1, 64, 64), 'cluster'),
+    ('grid_route', (1, 512, 512), 'grid')])
+def test_masked_cg_cases_by_route(card, name, shape, route):
+    """Each case takes the kernel its shape says, agrees with the plain
+    version under the bars of the main path's shape, and a second launch on
+    the same input is bit-identical."""
+    n, h, w = shape
+    if n is None:
+        threads = pp.cluster_plan(3, h, w).threads
+        n = pp.active_clusters(card.index, threads) + 3
+    b, u, x0, fixed, tgt_s, gamma, tgt = centre_block_system(n, h, w, 11,
+                                                             card)
+    assert pp.masked_cg_route(3, h, w) == route
+    before = dict(pp.ROUTE_LAUNCHES)
+    x = masked_cg(b, u, x0, 200)
+    again = masked_cg(b, u, x0, 200)
+    torch.cuda.synchronize()
+    other = 'grid' if route == 'cluster' else 'cluster'
+    assert pp.ROUTE_LAUNCHES[route] == before[route] + 2
+    assert pp.ROUTE_LAUNCHES[other] == before[other]
+    assert torch.equal(x, again)
+    got = decode_solution(x, fixed, tgt_s, gamma)
+    want = decode_solution(masked_cg_plain(b, u, x0, 200), fixed, tgt_s,
+                           gamma)
+    assert float((got - want).abs().max()) <= 0.5
+    keep = fixed[:, 0]
+    assert float((got[keep] - tgt[keep]).abs().max()) <= 6e-3
+
+
+@pytest.mark.cuda
+def test_masked_cg_cluster_and_grid_agree(card):
+    """The cluster kernel and the grid kernel solve the same system."""
+    b, u, x0 = centre_block_system(2, 256, 256, 12, card)[:3]
+    want = masked_cg_plain(b, u, x0, 200)
+    scale = float(want.abs().max())
+    for got in (pp.masked_cg_cluster_cuda(b, u, x0, 200),
+                pp.masked_cg_grid_cuda(b, u, x0, 200)):
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    with pytest.raises(ValueError, match='cannot hold'):
+        pp.masked_cg_cluster_cuda(*centre_block_system(1, 512, 512, 1,
+                                                       card)[:3], 5)
+
+
+@pytest.mark.cuda
+def test_masked_cg_cuda_refuses_what_it_does_not_take(card):
+    b, u, x0 = centre_block_system(1, 32, 32, 13, card)[:3]
+    before = MASKED_CG.launches
+    with pytest.raises(ValueError, match='contiguous'):
+        pp.masked_cg_cuda(b.transpose(2, 3), u.transpose(2, 3),
+                          x0.transpose(2, 3), 5)
+    with pytest.raises(ValueError, match='CUDA'):
+        pp.masked_cg_cuda(b.cpu(), u, x0, 5)
+    with pytest.raises(TypeError):
+        pp.masked_cg_cuda(b.double(), u.double(), x0.double(), 5)
+    with pytest.raises(ValueError, match='shape'):
+        pp.masked_cg_cuda(b, u[:, :2], x0, 5)
+    assert MASKED_CG.launches == before
+
+
 @pytest.mark.cuda
 def test_tiny_slice_on_card_matches_cpu(card):
     cfg = C.PipelineConfig(
@@ -79,8 +155,9 @@ def test_tiny_slice_on_card_matches_cpu(card):
 
 def warp_mesh_case(name):
     """(verts_dst, tris, uv, size): the warp mesh of a 512 px transfer at
-    672 px, the 5-point mesh of tests/test_raster_pallas.py at 64 px, or no
-    triangle at all."""
+    672 px, the 5-point mesh of tests/test_raster_pallas.py at 64 px, a
+    seeded soup of 900 large triangles at 96 px (more than 256 in a tile),
+    or no triangle at all."""
     if name == 'session':
         lm = canonical_template_81().astype(np.float64)
         sel = warp.CHOSEN_LANDMARKS
@@ -94,6 +171,12 @@ def warp_mesh_case(name):
                         [size - 16, size - 16], [size / 2, size / 2]], float)
         verts, vdst, tris = warp.build_warp_mesh(
             src, src + np.array([3.0, -2.0]), size, size, use_arap=False)
+    elif name == 'crowded':
+        size = 96
+        rng = np.random.default_rng(3)
+        verts = rng.uniform(0, size, (400, 2))
+        vdst = verts + rng.normal(0, 1.5, verts.shape)
+        tris = rng.integers(0, 400, (900, 3)).astype(np.int32)
     else:
         size = 32
         verts = vdst = np.zeros((3, 2))
@@ -102,12 +185,16 @@ def warp_mesh_case(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('name', ['session', 'five_point', 'empty'])
+@pytest.mark.parametrize('name', ['session', 'five_point', 'empty',
+                                  'crowded'])
 def test_raster_uv_kernel_matches_plain(card, name):
     """float32 on the card: >= 99.5% of pixels within 1e-4 and a median
     difference < 1e-6 (a pixel on a shared edge may go to either triangle);
     with no triangle the identity UV is exact."""
     vdst, tris, uv, size = warp_mesh_case(name)
+    if name == 'crowded':
+        tri, _ = rp.triangle_tables(vdst, tris, uv)
+        assert rp.bin_with_retry(tri, size, size)[4] > rp.MAX_BIN
     before = rp.RASTER_UV.launches
     got = rp.rasterize_uv_cuda(vdst, tris, uv, size, size, card)
     torch.cuda.synchronize()

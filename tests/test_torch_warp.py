@@ -222,22 +222,31 @@ def test_binning_invariants(size, shift):
     assert tri.dtype == uvt.dtype == np.float32
     np.testing.assert_array_equal(tri[:, 2:4],
                                   dst[tris[:, 1]].astype(np.float32))
-    bins, counts, gh, gw = rp.bin_triangles(tri, size, size)
+    offsets, indices, gh, gw = rp.bin_triangles(tri, size, size)
     want = brute_force_bins(tri, size, size)
-    assert bins.shape == (gh * gw, rp.MAX_BIN) and bins.dtype == np.int32
+    assert offsets.shape == (gh * gw + 1,) and offsets.dtype == np.int32
+    assert indices.dtype == np.int32 and offsets[0] == 0
+    assert offsets[-1] == len(indices) == sum(map(len, want))
+    assert np.diff(offsets).max() <= rp.MAX_BIN
     for g, lst in enumerate(want):
-        assert counts[g] == len(lst)
-        assert bins[g, :len(lst)].tolist() == lst       # all, ascending
-        assert (bins[g, len(lst):] == -1).all()
+        # all of the tile's triangles, ascending, and nothing else
+        assert indices[offsets[g]:offsets[g + 1]].tolist() == lst
+    # the kernel's rows: the vertices, the sign and the reciprocal area of
+    # the plain version, the UVs, two zeros
+    rows = rp.triangle_rows(tri, uvt)
+    assert rows.shape == (len(tris), 16) and rows.dtype == np.float32
+    np.testing.assert_array_equal(rows[:, 0:6], tri[:, 0:6])
+    np.testing.assert_array_equal(rows[:, 8:14], uvt[:, 0:6])
+    assert (rows[:, 14:] == 0).all() and (np.abs(rows[:, 6]) == 1).all()
 
 
 def test_binning_overflow_doubles_then_raises(monkeypatch):
     # 300 copies of one triangle in a single tile: over 256, under 512
     one = np.array([[2, 2, 12, 2, 2, 12, 0, 0]], np.float32)
-    bins, counts, _, _, used = rp.bin_with_retry(np.repeat(one, 300, 0),
-                                                 16, 32)
-    assert used == 2 * rp.MAX_BIN and counts.tolist() == [300]
-    assert bins[0, :300].tolist() == list(range(300))
+    offsets, indices, _, _, used = rp.bin_with_retry(np.repeat(one, 300, 0),
+                                                     16, 32)
+    assert used == 2 * rp.MAX_BIN and offsets.tolist() == [0, 300]
+    assert indices.tolist() == list(range(300))
     with pytest.raises(OverflowError):
         rp.bin_triangles(np.repeat(one, 300, 0), 16, 32)
     seen = []
@@ -248,9 +257,9 @@ def test_binning_overflow_doubles_then_raises(monkeypatch):
         rp.bin_with_retry(np.repeat(one, 1100, 0), 16, 32)
     assert seen == [256, 512, 1024]
     # no triangle at all
-    bins, counts, gh, gw = real(np.zeros((0, 8), np.float32), 40, 40)
-    assert (gh, gw) == (3, 2) and counts.tolist() == [0] * 6
-    assert (bins == -1).all()
+    offsets, indices, gh, gw = real(np.zeros((0, 8), np.float32), 40, 40)
+    assert (gh, gw) == (3, 2) and offsets.tolist() == [0] * 7
+    assert indices.shape == (0,)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -259,12 +268,12 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     verts, dst, tris = five_point_mesh(64, (1.0, 1.0))
     with pytest.raises(ValueError, match='CUDA'):
         rp.rasterize_uv_cuda(dst, tris, verts / 64, 64, 64, 'cpu')
-    tri, uvt = (torch.tensor(a) for a in rp.triangle_tables(
-        dst, tris, verts / 64))
-    bins, counts, _, _ = rp.bin_triangles(tri.numpy(), 64, 64)
+    tri, uvt = rp.triangle_tables(dst, tris, verts / 64)
+    offsets, indices, _, _ = rp.bin_triangles(tri, 64, 64)
     with pytest.raises(ValueError, match='CUDA'):
-        rp.rasterize_binned_cuda(tri, uvt, torch.tensor(bins),
-                                 torch.tensor(counts), 64, 64)
+        rp.rasterize_binned_cuda(torch.tensor(rp.triangle_rows(tri, uvt)),
+                                 torch.tensor(offsets),
+                                 torch.tensor(indices), 64, 64)
     assert rp.RASTER_UV.launches == 0
 
 
