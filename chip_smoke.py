@@ -2,14 +2,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full default PipelineConfig() width
-(random weights from a seed, the shipped median style codes):
-  1. the editor: analyze -> latent edits -> output / output_refresh /
+Drives the port's three paths at the full default PipelineConfig() width:
+  1. the editor (random weights from a seed, the shipped median style
+     codes): analyze -> latent edits -> output / output_refresh /
      output_sweep, through ctrlhair_tpu_torch.pipeline.editor.HairEditor;
-  2. the Backend session on the same editor: set input and target, every
+  2. the Backend session on the same editor (which the Backend loads with
+     the shipped checkpoints of model_trained/): set input and target, every
      slider, colour and texture transfer, reference-photo shape transfer
      (twice), an interpolation sweep and a painted hair mask, through
-     ctrlhair_tpu_torch.pipeline.backend.Backend.
+     ctrlhair_tpu_torch.pipeline.backend.Backend;
+  3. the deployment session: Backend() as a user starts it, on an editor of
+     its own built and loaded from model_trained/ (SEAN and the shape VAE,
+     which do not ship, stay seeded), on the real photo samples/input.png:
+     crop_face of its 1024 px upscale, hair colour, colour / texture / shape
+     transfer with the shipped landmark net, a need_crop=True transfer of
+     two 1024 px photos, sliders, blended outputs and a sweep; the shipped
+     families' weights are held to their checkpoints by checksum.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -36,6 +44,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -128,9 +137,15 @@ def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel_name in e.key]
     count = sum(e.count for e in events)
-    if count != reps:
+    # the profiler may drop a record of a microsecond kernel: the mean is
+    # taken over the launches it saw, which must be some and no more than
+    # were made
+    if not 0 < count <= reps:
         raise AssertionError(f'profiler saw {count} launches of '
                              f'{kernel_name}, expected {reps}')
+    if count < reps:
+        log(f'[profile] {kernel_name}: the profiler kept {count} of {reps} '
+            'launches')
     return sum(e.self_device_time_total for e in events) / 1e3 / count
 
 
@@ -851,6 +866,223 @@ def phase_warp_routes(be, parses, mesh):
     return {'routes_agree': agree}, times
 
 
+DEPLOYMENT_REPS = 5
+# families shipped in model_trained/ (as the editor names them), and the
+# two that are not (their checkpoints are distributed separately)
+SHIPPED = {'bisenet', 'ct_gen', 'ct_dis', 'rgb_pred', 'curliness_pred'}
+NOT_SHIPPED = {'sean', 'shape'}
+# the trained parse of the sample: share of its 256 px label that is hair
+# (the JAX package gives 0.28 at 512 px), and the landmark net's presence
+HAIR_SHARE_MIN, PRESENCE_MIN = 0.10, 0.9
+
+
+def float_leaves(tree):
+    """Every float array leaf of a decoded checkpoint tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from float_leaves(v)
+    elif isinstance(tree, np.ndarray) and tree.dtype.kind == 'f':
+        yield tree
+
+
+def module_sum(module) -> float:
+    return sum(float(v.double().sum()) for v in module.state_dict().values())
+
+
+def family_checksums(be, net):
+    """Read and decode each shipped checkpoint again (host ms, bytes, leaves)
+    and hold the float64 sum of the leaves each family loaded against the
+    sum of that family's parameters and statistics on the card (1e-6
+    relative).  The landmark net's checkpoint is held against the net."""
+    from ctrlhair_tpu_torch.convert.load import family_dirs, pick_variables
+    from ctrlhair_tpu_torch.utils import flax_msgpack
+    from ctrlhair_tpu_torch.utils.checkpoint import latest_checkpoint_path
+    root = os.path.join(ROOT, 'model_trained')
+    dirs = {arg[:-len('_dir')]: d for arg, d in family_dirs(root).items()}
+    dirs['landmark_net'] = os.path.join(root, 'landmark_net', 'checkpoints')
+    family_of = {'color_texture': 'color_texture', 'rgb_predictor': 'rgb_pred',
+                 'curliness_predictor': 'curliness_pred',
+                 'bisenet': 'bisenet', 'shape': 'shape', 'sean': 'sean'}
+    out = {}
+    for name, ckpt_dir in sorted(dirs.items()):
+        if ckpt_dir is None:
+            continue
+        path = latest_checkpoint_path(ckpt_dir)
+        if path is None:
+            raise AssertionError(f'{ckpt_dir}: no checkpoint')
+        t0 = time.perf_counter()
+        tree = flax_msgpack.read(path)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        if name == 'landmark_net':
+            parts = {'landmark_net': (tree, net)}
+        else:
+            parts = {fam: (variables, getattr(be.editor, fam)) for fam, variables
+                     in pick_variables(family_of[name], tree).items()}
+        for fam, (variables, module) in parts.items():
+            want = sum(float(a.astype(np.float64).sum())
+                       for a in float_leaves(variables))
+            got = module_sum(module)
+            rel = abs(got - want) / max(abs(want), 1e-30)
+            out[fam] = {'file': os.path.relpath(path, ROOT),
+                        'bytes': os.path.getsize(path),
+                        'leaves': sum(1 for _ in float_leaves(tree)),
+                        'read_decode_ms': read_ms, 'sum_file': want,
+                        'sum_card': got, 'relative_difference': rel}
+            log(f'[deploy] {fam}: {out[fam]["file"]}, {out[fam]["bytes"]} B, '
+                f'{out[fam]["leaves"]} leaves, read and decoded in '
+                f'{read_ms:.3f} ms on the host; float64 sum {want:.9e} in the '
+                f'file, {got:.9e} on the card (relative {rel:.2e})')
+            if not rel <= 1e-6:
+                raise AssertionError(f'{fam}: the card\'s weights do not sum '
+                                     'to the checkpoint\'s')
+    return out
+
+
+def phase_deployment():
+    """The deployment session: Backend() as a user starts it builds the
+    full-width PipelineConfig() editor on the card and loads model_trained/;
+    then a real photo (samples/input.png), its 4x upscale made on the card as
+    the raw 1024 px photo, and its mirror image as the reference photo go
+    through crop_face, set_input/set_target, get_hair_color, colour,
+    texture and shape transfer (twice, the second from the cached
+    landmarks), one need_crop=True transfer of the two 1024 px photos, four
+    slider moves, two blended outputs and an interpolation sweep of 8.
+    Returns (launches of K1 and K2, the session's record)."""
+    from ctrlhair_tpu_torch.constants import HAIR_IDX
+    from ctrlhair_tpu_torch.ops import landmarks
+    from ctrlhair_tpu_torch.ops.poisson_pallas import (
+        MASKED_CG, ROUTE_LAUNCHES)
+    from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
+    from ctrlhair_tpu_torch.ops.resize import resize_bilinear_nhwc
+    from ctrlhair_tpu_torch.ops.warp import warp_hair_mask_between_images
+    from ctrlhair_tpu_torch.pipeline.backend import Backend
+    from ctrlhair_tpu_torch.utils.image import read_rgb
+
+    t0 = time.perf_counter()
+    be = Backend()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    ed = be.editor
+    n_params = sum(p.numel() for p in ed.parameters())
+    seeded = sorted(NOT_SHIPPED - set(be.loaded_families))
+    log(f'[deploy] Backend(): PipelineConfig() editor on {ed.device}, '
+        f'{n_params} parameters, built and loaded in {build_ms:.1f} ms; '
+        f'loaded {be.loaded_families}; at their seeded initialisation: '
+        f'{seeded}')
+    if ed.device.type != 'cuda' or set(be.loaded_families) != SHIPPED \
+            or seeded != sorted(NOT_SHIPPED):
+        raise AssertionError('Backend() did not build on the card and load '
+                             f'every shipped family: {be.loaded_families}')
+
+    sample = read_rgb(os.path.join(ROOT, 'samples', 'input.png'))
+    up = resize_bilinear_nhwc(torch.as_tensor(sample, dtype=torch.float32,
+                                              device=ed.device)[None],
+                              (1024, 1024))
+    raw = torch.clamp(torch.round(up[0]), 0, 255).to(torch.uint8).cpu(
+        ).numpy()
+    mirrored = np.ascontiguousarray(sample[:, ::-1])
+    raw_mirrored = np.ascontiguousarray(raw[:, ::-1])
+    hair_share = float((ed.analyze_image(sample)['label'] == HAIR_IDX
+                        ).float().mean())
+    s = be.cfg.edit_size
+
+    MASKED_CG.launches = RASTER_UV.launches = 0
+    ROUTE_LAUNCHES.update(cluster=0, grid=0)
+    crop = be.crop_face(raw)
+    be.set_input_img(crop)
+    be.set_target_img(mirrored)
+    colour = ed.get_hair_color(raw)
+    be.transfer_latent_representation('color')
+    be.transfer_latent_representation('texture')
+    be.transfer_latent_representation('shape')
+    cached = be._lm81['target']
+    be.transfer_latent_representation('shape')
+    if be._lm81['target'] is not cached:
+        raise AssertionError('the second shape transfer estimated the '
+                             'landmarks again')
+    transfers = 2
+    warp_1024 = warp_hair_mask_between_images(raw, raw_mirrored, ed,
+                                              need_crop=True)
+    transfers += 1
+    start = be.cur_latent
+    be.change_color(0.8, 0)
+    be.change_curliness(0.5)
+    be.change_shape(0.6, 1)
+    be.change_texture(-0.4, 0)
+    outs = {'output': be.output(), 'output_refresh': be.output(be.cur_latent),
+            'sweep': be.interpolation_sweep(
+                start, be.cur_latent, np.linspace(0, 1, 8, dtype=np.float32))}
+    blends = 3
+    torch.cuda.synchronize()
+    launches = {'masked_cg': MASKED_CG.launches,
+                'raster_uv': RASTER_UV.launches}
+    routes = dict(ROUTE_LAUNCHES)
+
+    presence = {name: landmarks.net_landmarks_81(img, device=ed.device)
+                for name, img in (('sample', sample), ('crop', crop),
+                                  ('mirrored', mirrored))}
+    record = {
+        'build_ms': build_ms, 'parameters': n_params,
+        'loaded_families': be.loaded_families, 'seeded_families': seeded,
+        'hair_share_sample_256': hair_share,
+        'hair_share_crop_256': float((be.input_mask == HAIR_IDX).mean()),
+        'presence': {k: (None if v is None else v[1])
+                     for k, v in presence.items()},
+        'hair_colour_rgb': colour.tolist(),
+        'warp_need_crop_hair_px': int((warp_1024 == HAIR_IDX).sum()),
+        'warp_cached_hair_px': int((be.warp_target == HAIR_IDX).sum()),
+        'launches': launches, 'routes': routes,
+    }
+    log(f'[deploy] session: crop_face, 2 photos, hair colour, colour, '
+        f'texture and {transfers} shape transfers (one need_crop=True at '
+        f'1024 px), 4 slider moves, {blends} blends (one a sweep of 8): '
+        f'{json.dumps(record)}')
+    if record['hair_share_sample_256'] < HAIR_SHARE_MIN:
+        raise AssertionError('the trained parser labels too little hair')
+    if any(v is None or v < PRESENCE_MIN for v in record['presence'].values()):
+        raise AssertionError(f'landmark net presence {record["presence"]}')
+    if launches != {'masked_cg': blends, 'raster_uv': transfers} or \
+            routes != {'cluster': blends, 'grid': 0}:
+        raise AssertionError(f'deployment launches {launches} by {routes}, '
+                             f'expected {blends} blends by the cluster '
+                             f'kernel and {transfers} shape transfers')
+    shapes = {'crop': ((s, s, 3), crop), 'output': ((s, s, 3), outs['output']),
+              'output_refresh': ((s, s, 3), outs['output_refresh']),
+              'sweep': ((8, s, s, 3), outs['sweep'])}
+    for name, (shape, img) in shapes.items():
+        if not (isinstance(img, np.ndarray) and img.dtype == np.uint8
+                and img.shape == shape):
+            raise AssertionError(f'deployment {name}: {type(img)} '
+                                 f'{getattr(img, "shape", None)}')
+    for name, wt in (('need_crop', warp_1024), ('cached', be.warp_target)):
+        if tuple(wt.shape) != (s, s) or wt.device != ed.device or \
+                int((wt == HAIR_IDX).sum()) == 0:
+            raise AssertionError(f'warp {name}: {tuple(wt.shape)}, no hair')
+    if not np.isfinite(colour).all() or colour.shape != (3,):
+        raise AssertionError(f'hair colour {colour}')
+
+    if landmarks._NET is None:
+        raise AssertionError('the landmark net was not loaded')
+    record['checksums'] = family_checksums(be, landmarks._NET[0])
+    # times, each call ended by torch.cuda.synchronize(), in turns; the
+    # host parts of the two slow ones alone: the 1024 px crop (one of the
+    # two a need_crop transfer makes) and the net's area resize
+    from ctrlhair_tpu_torch.models.landmark_net import preprocess_image
+    from ctrlhair_tpu_torch.ops.crop import recreate_aligned_image
+    lm68 = landmarks.net_landmarks_81(raw, device=ed.device)[0][:68] * 1024.0
+    record['median_ms'] = median_wall_ms_in_turns({
+        'crop_face': lambda: be.crop_face(raw),
+        'net_landmarks_81': lambda: landmarks.net_landmarks_81(
+            raw, device=ed.device),
+        'net_area_resize_1024_host': lambda: preprocess_image(raw, 128),
+        'warp_need_crop_1024': lambda: warp_hair_mask_between_images(
+            raw, raw_mirrored, ed, need_crop=True),
+        'crop_1024_host': lambda: recreate_aligned_image(raw, lm68, 1024),
+        'backend_output': be.output,
+    }, DEPLOYMENT_REPS)
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -927,10 +1159,11 @@ def main() -> int:
     # kernels set to 0 before it and read after it
     backend = Backend(cfg=cfg, editor=editor, seed=SEED,
                       trained_root=os.path.join(ROOT, 'model_trained'))
-    log(f'[backend] Backend(editor, trained_root=model_trained): HSV table '
-        f'of {backend.dist_translation.n} rows, {len(backend.shape_dirs)} '
-        f'shape and {len(backend.texture_dirs)} texture directions')
-    log('[backend] random weights parse no face: two synthetic '
+    log(f'[backend] Backend(editor, trained_root=model_trained): loaded '
+        f'{backend.loaded_families}, HSV table of '
+        f'{backend.dist_translation.n} rows, {len(backend.shape_dirs)} shape '
+        f'and {len(backend.texture_dirs)} texture directions')
+    log('[backend] the synthetic photos hold no face: two synthetic '
         f'{cfg.bisenet.input_size} px label maps (skin, brows, eyes, nose, '
         'mouth, neck, hair cap; the reference photo\'s face shifted and '
         'scaled) are painted on the card and put into the Backend\'s '
@@ -993,6 +1226,19 @@ def main() -> int:
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip()
+
+    # 7. the deployment session, on an editor of its own: the first one is
+    # freed, the launch counts set to 0 before the session and read after it
+    del editor, backend, a_in, lat, hair_label, outs, b_outs, parses, mesh
+    del codes, label, regen, face, face_t, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_launches, deployment = phase_deployment()
+    log(f'[time] deployment Backend() build and load: '
+        f'{deployment["build_ms"]:.3f} ms wall, one build ({smi})')
+    for k, v in deployment['median_ms'].items():
+        log(f'[time] deployment {k}: {v:.3f} ms median wall of '
+            f'{DEPLOYMENT_REPS} ({smi})')
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
     raster_entry['case']['ptxas'] = ptxas['raster_uv']
@@ -1000,17 +1246,21 @@ def main() -> int:
         'name': 'masked_cg', 'route': 'cuda',
         'source': 'ctrlhair_tpu_torch/csrc/masked_cg.cu',
         'replaces': 'ctrlhair_tpu/ops/poisson_pallas.py:33',
-        'launches': launches + b_launches['masked_cg'],
+        'launches': launches + b_launches['masked_cg']
+        + d_launches['masked_cg'],
         'launches_by_path': {'editor': launches,
-                             'backend': b_launches['masked_cg']},
+                             'backend': b_launches['masked_cg'],
+                             'deployment': d_launches['masked_cg']},
         **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
         'source': 'ctrlhair_tpu_torch/csrc/raster_uv.cu',
         'replaces': 'ctrlhair_tpu/ops/raster_pallas.py:146',
-        'launches': raster_launches + b_launches['raster_uv'],
+        'launches': raster_launches + b_launches['raster_uv']
+        + d_launches['raster_uv'],
         'launches_by_path': {'editor': raster_launches,
-                             'backend': b_launches['raster_uv']},
+                             'backend': b_launches['raster_uv'],
+                             'deployment': d_launches['raster_uv']},
         **raster_entry,
     }]
     if set(kernels[0]) != set(kernels[1]):
@@ -1020,11 +1270,12 @@ def main() -> int:
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'slice': {
         'config': 'PipelineConfig()', 'compute_dtype': cfg.compute_dtype,
-        'parameters': sum(p.numel() for p in editor.parameters()),
+        'parameters': n_params,
         'max_memory_allocated': torch.cuda.max_memory_allocated(),
         'stage_ms': stage_ms, 'profile': profile,
         'session_check': session_check, 'reference': reference,
         'backend_check': {**warp_check, **routes_check},
+        'deployment': deployment,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -14,8 +14,9 @@
 #   SubspaceLayer U/L/mu, ACE noise_var/blending_*)  -> kept as they are
 #   style_fallback [19,D]                 -> the editor's buffer
 # Input is the JAX editor's parameter tree as nested dicts of numpy arrays
-# (the caller does any device-to-host copy).  An unknown leaf raises here; a
-# missing one raises when the state dict is loaded (strict=True).
+# (the caller does any device-to-host copy, or convert/load.py decodes a
+# checkpoint).  An unknown leaf raises here; a missing one raises when the
+# state dict is loaded (strict=True).
 
 from __future__ import annotations
 

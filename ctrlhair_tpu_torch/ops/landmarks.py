@@ -1,20 +1,26 @@
-# Facial landmark estimation without dlib (host part, numpy only).
+# Facial landmark estimation without dlib.
 #
-# Port of ctrlhair_tpu/ops/landmarks.py, the estimators that need no network:
+# Port of ctrlhair_tpu/ops/landmarks.py:
 #   1. a parametric canonical 81-point template in FFHQ-aligned coordinates,
 #   2. a similarity transform fitted from face-parsing region centroids
 #      (eyes / nose / mouth from the BiSeNet label map) mapping the template
 #      onto the actual face,
 #   3. the parsing-contour estimator that drives each landmark group from
-#      the region boundaries of the segmentation.
+#      the region boundaries of the segmentation (host numpy),
+#   4. the learned regressor (models/landmark_net.py) on the RGB image, its
+#      shipped checkpoint loaded once per process on first use.
 # The reference depends on dlib's HOG detector + 68/81-point shape predictors
-# (ref: external_code/landmarks_util.py:17-19).  The learned regressor of the
-# JAX package (models/landmark_net.py) is not ported yet: method='auto'
-# resolves to the contour estimator and method='net' raises.
+# (ref: external_code/landmarks_util.py:17-19).  method='auto' takes the
+# regressor when an image is given and its checkpoint is in the checkout,
+# else the contour estimator, as the JAX package does.  The regressor runs
+# on the device its caller names; none means the first CUDA device.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 from ctrlhair_tpu_torch.constants import PARSING_LABEL_LIST
 
@@ -422,23 +428,32 @@ def contour_landmarks_81(label_map: np.ndarray) -> np.ndarray:
 
 def estimate_landmarks_81(label_map: np.ndarray,
                           method: str = 'auto',
-                          image: np.ndarray | None = None) -> np.ndarray:
+                          image: np.ndarray | None = None,
+                          device=None) -> np.ndarray:
     """[S, S] CelebA label map -> [81, 2] normalised landmarks in [0,1].
 
-    method='auto' (default): the contour estimator, until the learned
-        regressor is ported (the JAX package then prefers the regressor
-        when an RGB `image` is given and its weights ship in-tree).
+    method='auto' (default): the learned regressor when an RGB `image` is
+        given and its trained weights ship in the checkout (loaded once from
+        model_trained/landmark_net); otherwise the contour estimator.
     method='contour': parsing-contour estimator above.
-    method='net': the learned regressor; not ported yet, raises.
+    method='net': the learned regressor (load_landmark_net first; pass the
+        RGB `image`); falls back to contour when no net is loaded or the
+        presence head says no face, the analogue of dlib's detector
+        returning no boxes (ref: external_code/landmarks_util.py:30-37).
     method='template': bare fitted template prior.
-    `image` is accepted for the JAX signature and unused by these methods.
+    `device`: where the regressor runs (None: the first CUDA device).
     """
+    if method == 'auto':
+        method = ('net' if image is not None
+                  and _autoload_landmark_net(device) else 'contour')
     if method == 'net':
-        raise NotImplementedError(
-            "estimate_landmarks_81(method='net'): the learned landmark net "
-            '(models/landmark_net.py) is not ported yet; see ROADMAP.md, '
-            '"Landmark net"')
-    if method in ('auto', 'contour'):
+        if image is None:
+            raise ValueError("method='net' needs the RGB image")
+        res = net_landmarks_81(image, device=device)
+        if res is not None:
+            return res[0]
+        method = 'contour'
+    if method == 'contour':
         return contour_landmarks_81(label_map)
     if method == 'template':
         return template_landmarks_81(select_main_face(np.asarray(label_map)))
@@ -447,6 +462,104 @@ def estimate_landmarks_81(label_map: np.ndarray,
 
 def estimate_landmarks_68(label_map: np.ndarray,
                           method: str = 'auto',
-                          image: np.ndarray | None = None) -> np.ndarray:
-    return estimate_landmarks_81(label_map, method=method,
-                                 image=image)[:68]
+                          image: np.ndarray | None = None,
+                          device=None) -> np.ndarray:
+    return estimate_landmarks_81(label_map, method=method, image=image,
+                                 device=device)[:68]
+
+
+# --------------------------------------------------------------------------
+# Learned regressor path (models/landmark_net.py): one net per process,
+# as the reference loads its dlib predictor once per process
+# (ref: external_code/landmarks_util.py:17-19).
+
+_NET = None  # (LandmarkNet, LandmarkNetConfig) once loaded
+_AUTOLOAD_TRIED = False
+
+
+def _resolve(device) -> torch.device:
+    from ctrlhair_tpu_torch.pipeline.editor import resolve_device
+    return resolve_device(device)
+
+
+def _autoload_landmark_net(device) -> bool:
+    """One load of the shipped checkpoint for method='auto'; an absent
+    checkpoint is remembered, an unreadable one raises (and is tried again
+    on the next call)."""
+    global _AUTOLOAD_TRIED
+    if _NET is not None:
+        return True
+    if _AUTOLOAD_TRIED:
+        return False
+    found = load_landmark_net(device=device)
+    _AUTOLOAD_TRIED = True
+    return found
+
+
+def default_landmark_ckpt_dir() -> str:
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(repo, 'model_trained', 'landmark_net',
+                        'checkpoints')
+
+
+def load_landmark_net(ckpt_dir: str | None = None, cfg=None,
+                      device=None) -> bool:
+    """Load the trained landmark regressor as the process's net, on
+    `device` (None: the first CUDA device).
+
+    Returns True when a checkpoint was found and loaded; False (no
+    checkpoint directory or manifest) leaves the contour estimator as the
+    only path.  A checkpoint that is present but does not decode or does not
+    fit the net raises.
+    """
+    global _NET
+    from ctrlhair_tpu_torch.convert import from_flax
+    from ctrlhair_tpu_torch.models.landmark_net import (LandmarkNet,
+                                                        LandmarkNetConfig)
+    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
+    device = _resolve(device)
+    restored = load_checkpoint(ckpt_dir or default_landmark_ckpt_dir())
+    if restored is None:
+        return False
+    cfg = cfg or LandmarkNetConfig()
+    tree = restored[0]
+    if not (isinstance(tree, dict) and set(tree) == {'params'}):
+        raise ValueError('landmark net checkpoint: keys '
+                         f'{sorted(tree) if isinstance(tree, dict) else tree}'
+                         ", expected {'params'}")
+    state = from_flax({'net': tree})
+    with torch.device(device):
+        model = LandmarkNet(cfg)
+    model.load_state_dict({k[len('net.'):]: v for k, v in state.items()},
+                          strict=True)
+    model.eval().requires_grad_(False)
+    _NET = (model, cfg)
+    return True
+
+
+def unload_landmark_net() -> None:
+    global _NET, _AUTOLOAD_TRIED
+    _NET = None
+    _AUTOLOAD_TRIED = False
+
+
+@torch.inference_mode()
+def net_landmarks_81(image: np.ndarray, min_presence: float = 0.5,
+                     device=None):
+    """RGB uint8 image -> ([81,2] normalised landmarks, presence prob), or
+    None when no net is loaded or the presence head rejects the frame.  The
+    net runs on `device` (None: the first CUDA device); the image is resized
+    on the host, as the JAX package does."""
+    if _NET is None:
+        return None
+    from ctrlhair_tpu_torch.models.landmark_net import preprocess_image
+    model, cfg = _NET
+    model.to(_resolve(device))
+    x = torch.from_numpy(preprocess_image(image, cfg.input_size))
+    out = model(x.to(model.template.device))
+    logit = out['presence'][0].cpu().numpy()
+    presence = float(1 / (1 + np.exp(-logit)))
+    if presence < min_presence:
+        return None
+    return np.clip(out['landmarks'][0].cpu().numpy(), 0.0, 1.0), presence

@@ -378,6 +378,21 @@ def hair_mask_transfer_warp(hair_parsing, face_parsing,
     return out.numpy() if from_numpy else out
 
 
+def _crop_for_warp(img: np.ndarray, editor, crop_size: int) -> np.ndarray:
+    """FFHQ-align one raw photo at `crop_size` before shape transfer
+    (ref: wrap_codes/mask_adaptor.py:186-200 crops BOTH images at 1024).
+    The landmarks come from ops.landmarks' 'auto' estimator on the editor's
+    device: the learned net on the photo, else the contour of its parse."""
+    from ctrlhair_tpu_torch.ops.crop import recreate_aligned_image
+    from ctrlhair_tpu_torch.ops.landmarks import estimate_landmarks_68
+
+    label512 = editor.parse(img[None])[0].cpu().numpy()
+    lm68 = estimate_landmarks_68(label512, image=img, device=editor.device)
+    lm68_px = lm68 * np.array([img.shape[1], img.shape[0]], np.float64)
+    out, _ = recreate_aligned_image(img, lm68_px, crop_size)
+    return out
+
+
 def warp_hair_mask_between_images(hair_img, face_img, editor,
                                   use_arap: bool = True,
                                   need_crop: bool = True,
@@ -386,31 +401,28 @@ def warp_hair_mask_between_images(hair_img, face_img, editor,
                                   hair_lm81: Optional[np.ndarray] = None,
                                   face_lm81: Optional[np.ndarray] = None):
     """End-to-end reference-shape transfer between two photos
-    (ref: wrap_codes/mask_adaptor.py:175-220): parse both, estimate 81
-    landmarks from the parses, warp, and return the composite parsing at
-    the editor's edit size, on the editor's device.
-
-    need_crop=True (FFHQ-align both photos at `crop_size` first) needs
-    ops/crop.py, which is not ported yet, and raises; pass need_crop=False
-    for aligned inputs, as the Backend does.
+    (ref: wrap_codes/mask_adaptor.py:175-220): FFHQ-align both photos at
+    `crop_size` (need_crop, skippable for aligned inputs), parse both crops
+    in one batch, estimate 81 landmarks of each, warp, and return the
+    composite parsing at the editor's edit size, on the editor's device.
 
     hair_parse512/face_parse512/hair_lm81/face_lm81: optional precomputed
-    parses ([P,P] tensors on the editor's device) and [81,2] landmarks —
-    the Backend already parsed both images at set_input/set_target time,
-    so repeated transfers skip the parser and the host landmark estimation
-    (the reference instead re-runs dlib + BiSeNet per transfer,
-    ref: mask_adaptor.py:202-212).
+    parses ([P,P] tensors on the editor's device) and [81,2] landmarks of
+    aligned inputs: the Backend already parsed both images at
+    set_input/set_target time, so repeated transfers skip the parser and the
+    landmark estimation (the reference instead re-runs dlib + BiSeNet per
+    transfer, ref: mask_adaptor.py:202-212).  A crop invalidates them.
     """
     from ctrlhair_tpu_torch.ops.landmarks import estimate_landmarks_81
 
     if need_crop:
-        raise NotImplementedError(
-            'warp_hair_mask_between_images(need_crop=True): the FFHQ crop '
-            '(ops/crop.py) is not ported yet; see ROADMAP.md, "Crop and the '
-            '1024 px path"')
+        hair_img = _crop_for_warp(np.asarray(hair_img), editor, crop_size)
+        face_img = _crop_for_warp(np.asarray(face_img), editor, crop_size)
+        hair_parse512 = face_parse512 = None
+        hair_lm81 = face_lm81 = None
 
+    hair_np, face_np = np.asarray(hair_img), np.asarray(face_img)
     if hair_parse512 is None or face_parse512 is None:
-        hair_np, face_np = np.asarray(hair_img), np.asarray(face_img)
         if hair_np.shape == face_np.shape:
             # one batched parse for both images
             hair512, face512 = editor.parse(np.stack([hair_np, face_np]))
@@ -420,11 +432,11 @@ def warp_hair_mask_between_images(hair_img, face_img, editor,
     else:
         hair512 = editor._as(hair_parse512, torch.int32)
         face512 = editor._as(face_parse512, torch.int32)
-    hair_lm = (estimate_landmarks_81(hair512.cpu().numpy(),
-                                     image=np.asarray(hair_img))
+    hair_lm = (estimate_landmarks_81(hair512.cpu().numpy(), image=hair_np,
+                                     device=editor.device)
                if hair_lm81 is None else np.asarray(hair_lm81))
-    face_lm = (estimate_landmarks_81(face512.cpu().numpy(),
-                                     image=np.asarray(face_img))
+    face_lm = (estimate_landmarks_81(face512.cpu().numpy(), image=face_np,
+                                     device=editor.device)
                if face_lm81 is None else np.asarray(face_lm81))
     return hair_mask_transfer_warp(hair512, face512, hair_lm, face_lm,
                                    use_arap=use_arap,

@@ -9,11 +9,12 @@
 # current mask) live on the editor's device; images and label maps handed
 # back to the caller are numpy arrays, as in the JAX package.
 #
-# Weights: the port cannot read the shipped flax checkpoints yet, so the
-# caller builds the HairEditor and loads it (convert.from_flax, or
-# init_params); `editor=None` raises.  An explicit `trained_root` loads what
-# needs no checkpoint reader: the median style codes, the HSV table and the
-# direction pickles.
+# Weights: Backend() with no editor builds a HairEditor (on `device`, the
+# first CUDA device by default) and boots from the checkout's
+# model_trained/: every family checkpoint found there
+# (convert.load.load_trained_root), the median style codes, the HSV table
+# and the direction pickles, as the JAX Backend does.  A caller that passes
+# an editor keeps its weights unless it names a trained_root.
 
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from ctrlhair_tpu_torch.config import PipelineConfig
 from ctrlhair_tpu_torch.constants import HAIR_IDX, SHAPE_DIM, TEXTURE_DIM
+from ctrlhair_tpu_torch.convert.load import load_trained_root
 from ctrlhair_tpu_torch.ops.resize import resize_bilinear_nhwc
 from ctrlhair_tpu_torch.pipeline import latent as latent_ops
 from ctrlhair_tpu_torch.pipeline.direction_finder import load_directions
@@ -33,7 +35,7 @@ from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.pipeline.latent import Latent
 from ctrlhair_tpu_torch.utils.color_stats import DistTranslation
 from ctrlhair_tpu_torch.utils.colorspace import hsv_to_rgb_u8, rgb_to_hsv_u8
-from ctrlhair_tpu_torch.utils.image import mask_to_rgb
+from ctrlhair_tpu_torch.utils.image import mask_to_rgb, write_rgb
 from ctrlhair_tpu_torch.utils.masks import one_hot_to_label
 
 
@@ -43,24 +45,37 @@ def _to_u8(img_f: torch.Tensor) -> torch.Tensor:
                        255).to(torch.uint8)
 
 
+def repo_path(rel: str) -> str:
+    """A path inside this checkout."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(repo, rel)
+
+
 class Backend:
     """Interactive editing session (ref: ui/backend.py:40-462)."""
 
     def __init__(self, maximum_value_fe: float = 2.5, blending: bool = True,
                  cfg: PipelineConfig = PipelineConfig(),
                  editor: Optional[HairEditor] = None, seed: int = 0,
-                 hsv_table=None, trained_root: Optional[str] = None):
-        if editor is None:
-            raise RuntimeError(
-                'Backend: pass editor=HairEditor(...) with its weights '
-                'loaded.  Building an editor from the shipped '
-                'model_trained/*/checkpoints needs the flax checkpoint '
-                'reader, which is not ported yet (ROADMAP.md, "Checkpoint '
-                'reader").')
+                 hsv_table=None, trained_root: Optional[str] = 'auto',
+                 device=None):
+        """`trained_root='auto'` loads the checkout's model_trained/ when
+        this Backend builds its own editor (editor=None), and nothing into a
+        given editor; name a directory to load it either way.  `device` is
+        where a built editor lives (None: the first CUDA device)."""
         self.cfg = cfg
-        self.editor = editor
-        self.device = editor.device
+        self.editor = editor if editor is not None else HairEditor(
+            cfg, device=device, seed=seed)
+        self.device = self.editor.device
+        if trained_root == 'auto':
+            trained_root = (repo_path('model_trained') if editor is None
+                            else None)
+        # {family: step} of the checkpoints loaded into the editor
+        self.loaded_families = {}
         if trained_root and os.path.isdir(trained_root):
+            self.loaded_families = load_trained_root(self.editor,
+                                                     trained_root)
             median = os.path.join(trained_root, 'mean_style_code', 'median')
             if os.path.isdir(median):
                 self.editor.load_style_fallback(median)
@@ -120,11 +135,12 @@ class Backend:
         self._input_dev = None         # cached (img [1,S,S,3], mask [1,S,S])
 
     def crop_face(self, img_rgb: np.ndarray, save_path=None) -> np.ndarray:
-        """(ref: hair_editor.py:312-329)"""
-        raise NotImplementedError(
-            'Backend.crop_face: the FFHQ crop (ops/crop.py, '
-            'HairEditor.crop_face) is not ported yet; see ROADMAP.md, "Crop '
-            'and the 1024 px path"')
+        """FFHQ-align a raw photo to the edit size (ref: hair_editor.py:
+        312-329); written to `save_path` as a PNG when one is given."""
+        out = self.editor.crop_face(img_rgb)
+        if save_path:
+            write_rgb(save_path, out)
+        return out
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -158,7 +174,8 @@ class Backend:
             img = self.target_img if key == 'target' else self.input_img
             self._lm81[key] = estimate_landmarks_81(
                 self._parse512_np[key],
-                image=None if img is None else np.asarray(img))
+                image=None if img is None else np.asarray(img),
+                device=self.device)
         return self._lm81.get(key)
 
     @torch.inference_mode()

@@ -12,8 +12,11 @@
 # public ones run under torch.inference_mode.  The editor runs on one CUDA
 # device unless the caller asks for the CPU: with no card and no explicit
 # device it raises rather than fall back.
-# The session on top of it is pipeline/backend.Backend.
-# Not ported yet: crop_face, get_hair_color, generate_*.
+# The session on top of it is pipeline/backend.Backend.  The photo helpers
+# of the JAX editor come along: crop_face (FFHQ alignment from the learned
+# landmarks, ops/crop.py), get_hair_color (mean colour of the eroded hair at
+# 1024 px) and the instance transfer (generate_by_sean,
+# generate_instance_transfer_img).
 
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from ctrlhair_tpu_torch.models.color_texture import (
 from ctrlhair_tpu_torch.models.layers import DTYPES, init_parameters_
 from ctrlhair_tpu_torch.models.sean import SEAN
 from ctrlhair_tpu_torch.models.shape import ShapeGenerator
-from ctrlhair_tpu_torch.ops.morphology import dilate
+from ctrlhair_tpu_torch.ops.morphology import dilate, erode
 from ctrlhair_tpu_torch.ops.poisson_pallas import poisson_blend_fused
 from ctrlhair_tpu_torch.ops.resize import resize_bilinear_nhwc, resize_nearest
 from ctrlhair_tpu_torch.pipeline.latent import Latent
@@ -351,3 +354,71 @@ class HairEditor(nn.Module):
                                   self._as(face_img_u8, torch.uint8),
                                   self._as(face_label, torch.int32),
                                   self._as(target_label, torch.int32))
+
+    # ----------------------------------------------------- photo helpers
+    @torch.inference_mode()
+    def crop_face(self, img_rgb: np.ndarray,
+                  output_size: Optional[int] = None) -> np.ndarray:
+        """FFHQ-align and crop a face photo to `output_size` (the edit size
+        by default) (ref: hair_editor.py:312-329).  The landmarks come from
+        ops.landmarks' 'auto' estimator on this editor's device: the learned
+        net on the photo, else the contour of its parse."""
+        from ctrlhair_tpu_torch.ops.crop import recreate_aligned_image
+        from ctrlhair_tpu_torch.ops.landmarks import estimate_landmarks_68
+        img_rgb = np.asarray(img_rgb, np.uint8)
+        label512 = self._parse(self._to_parse_size(
+            self._as(img_rgb, torch.uint8)[None]))[0]
+        # landmarks are normalised to the (squashed) parse square: x scales
+        # by the width, y by the height
+        lm68 = estimate_landmarks_68(
+            label512.cpu().numpy(), image=img_rgb, device=self.device) \
+            * np.array([img_rgb.shape[1], img_rgb.shape[0]], np.float64)
+        out, _ = recreate_aligned_image(img_rgb, lm68,
+                                        output_size or self.cfg.edit_size)
+        return out
+
+    @torch.inference_mode()
+    def get_hair_color(self, img_rgb: np.ndarray) -> np.ndarray:
+        """Mean RGB [3] over the hair region eroded by 19 px, at 1024 px
+        (ref: hair_editor.py:233-244)."""
+        img = self._as(np.asarray(img_rgb, np.uint8), torch.uint8)[None]
+        label512 = self._parse(self._to_parse_size(img))
+        label = resize_nearest(label512, (1024, 1024))[0]
+        img = resize_bilinear_nhwc(img.to(torch.float32), (1024, 1024))[0]
+        hair = erode((label == HAIR_IDX).to(torch.float32), 19)
+        w = hair[..., None]
+        mean = (img * w).sum(dim=(0, 1)) / torch.clamp(w.sum(dim=(0, 1)),
+                                                       min=1.0)
+        return mean.cpu().numpy()
+
+    @torch.inference_mode()
+    def generate_by_sean(self, face_codes, hair_code,
+                         target_label) -> np.ndarray:
+        """Render face codes [19,D] with the hair code [D] swapped in under
+        `target_label` [S,S] -> [S,S,3] in [-1,1] (ref: hair_editor.py:
+        181-206)."""
+        codes = self._as(face_codes, torch.float32)[None].clone()
+        codes[:, HAIR_IDX] = self._as(hair_code, torch.float32)
+        img = self._render(codes, self._as(target_label, torch.int32)[None])
+        return img[0].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def generate_instance_transfer_img(self, face_img, face_label, hair_img,
+                                       hair_label, target_label,
+                                       edit_latent: Optional[Latent] = None
+                                       ) -> np.ndarray:
+        """Instance-level hair transfer: encode both photos, swap the hair
+        code (or the one an edited latent generates) into the face's codes,
+        render (ref: hair_editor.py:208-231)."""
+        def encode(img, label):
+            img_f = self._as(img, torch.float32)[None] / 127.5 - 1.0
+            return self.sean.encode(
+                img_f, self._as(label, torch.int32)[None]).float()
+
+        face_codes = encode(face_img, face_label)
+        hair_codes = (face_codes if hair_img is None
+                      else encode(hair_img, hair_label))
+        hair_code = hair_codes[0, HAIR_IDX]
+        if edit_latent is not None:
+            hair_code = self._feature(self._latent(edit_latent))[0]
+        return self.generate_by_sean(face_codes[0], hair_code, target_label)

@@ -1,6 +1,9 @@
 # The port's host landmark estimators against the JAX package's, on painted
 # label maps (tests/test_landmarks.synthetic_face).  Both sides are numpy
 # code on the same input, so the bar is atol 1e-6 on [0,1] coordinates.
+# Both sides are held to the estimators that read the label map (no
+# landmark net on either), so method='auto' is the contour estimator on
+# both; the net is tested in test_torch_landmark_net.py.
 import numpy as np
 import pytest
 
@@ -43,10 +46,11 @@ CASES = {
 
 @pytest.fixture(autouse=True)
 def no_landmark_net(monkeypatch):
-    """Hold the JAX side's method='auto' to the contour estimator (its
+    """Hold both sides' method='auto' to the contour estimator (their
     shipped landmark net would otherwise load)."""
-    monkeypatch.setattr(jl, '_AUTOLOAD_TRIED', True)
-    monkeypatch.setattr(jl, '_NET', None)
+    for side in (jl, tl):
+        monkeypatch.setattr(side, '_AUTOLOAD_TRIED', True)
+        monkeypatch.setattr(side, '_NET', None)
 
 
 def test_canonical_template_equal():
