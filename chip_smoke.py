@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at the full default PipelineConfig() width:
+Drives the port's four paths at the full default PipelineConfig() width:
   1. the editor (random weights from a seed, the shipped median style
      codes): analyze -> latent edits -> output / output_refresh /
      output_sweep, through ctrlhair_tpu_torch.pipeline.editor.HairEditor;
@@ -17,7 +17,15 @@ Drives the port's three paths at the full default PipelineConfig() width:
      crop_face of its 1024 px upscale, hair colour, colour / texture / shape
      transfer with the shipped landmark net, a need_crop=True transfer of
      two 1024 px photos, sliders, blended outputs and a sweep; the shipped
-     families' weights are held to their checkpoints by checksum.
+     families' weights are held to their checkpoints by checksum;
+  4. the serving surface, each part on a Backend() of its own after the
+     last is freed: the web server as `python -m ctrlhair_tpu_torch.ui.web`
+     builds it, served on 127.0.0.1 and driven over HTTP (both photos,
+     every slider, the three transfers and random draws, the images, one
+     bad request of each kind; the served PNGs decode to the held arrays),
+     then auto_curate('texture') and render_candidate_grids on its session;
+     the headless demo (ui.demo.main) in this process; and the multigrid
+     blend on the card against the CPU.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -44,6 +52,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -1083,6 +1092,344 @@ def phase_deployment():
     return launches, record
 
 
+# --------------------------------------------------------------- serving
+# The web script's renders: 11 slider moves, 3 transfers, 3 random draws,
+# each one blend; and the bar of the multigrid blend, card against CPU, on
+# [0,255].
+WEB_RENDERS = 17
+MG_BAR = 0.05
+WEB_SLIDER_VALUES = (0.7, -0.4, 1.2, 0.5, 0.6, -0.8, 0.9, 1.1, -0.6, 0.3,
+                     -1.0)
+
+
+@functools.lru_cache(maxsize=1)
+def http_opener():
+    """One urllib opener for every request (building one takes longer
+    than a request to the server), with the environment's proxies
+    bypassed."""
+    import urllib.request
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http(base: str, path: str, payload=None, raw: bytes = None):
+    """(status, body) of one GET (no payload) or POST to the local
+    server."""
+    import urllib.error
+    import urllib.request
+    data = raw if raw is not None else (
+        None if payload is None else json.dumps(payload).encode())
+    req = urllib.request.Request(base + path, data=data,
+                                 method='GET' if data is None else 'POST')
+    try:
+        with http_opener().open(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def ok(base: str, path: str, payload=None) -> bytes:
+    code, body = http(base, path, payload)
+    if code != 200:
+        raise AssertionError(f'{path} {payload}: HTTP {code} {body[:200]!r}')
+    return body
+
+
+def in_new_thread(fn):
+    """fn() on a thread started for it, as a ThreadingHTTPServer runs each
+    request."""
+    import threading
+    out = []
+    thread = threading.Thread(target=lambda: out.append(fn()))
+    thread.start()
+    thread.join()
+    if not out:
+        raise AssertionError('the call on a new thread raised')
+    return out[0]
+
+
+def reset_launches() -> None:
+    from ctrlhair_tpu_torch.ops.poisson_pallas import (
+        MASKED_CG, ROUTE_LAUNCHES)
+    from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
+    torch.cuda.synchronize()
+    MASKED_CG.launches = RASTER_UV.launches = 0
+    ROUTE_LAUNCHES.update(cluster=0, grid=0)
+
+
+def read_launches(what: str, masked_cg: int, raster_uv: int) -> dict:
+    """The launch counts since reset_launches(); they must be the ones
+    given, every masked CG by the cluster kernel."""
+    from ctrlhair_tpu_torch.ops.poisson_pallas import (
+        MASKED_CG, ROUTE_LAUNCHES)
+    from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
+    torch.cuda.synchronize()
+    got = {'masked_cg': MASKED_CG.launches, 'raster_uv': RASTER_UV.launches}
+    routes = dict(ROUTE_LAUNCHES)
+    if got != {'masked_cg': masked_cg, 'raster_uv': raster_uv} or \
+            routes != {'cluster': masked_cg, 'grid': 0}:
+        raise AssertionError(f'{what}: launches {got} by {routes}, expected '
+                             f'{masked_cg} masked CG by the cluster kernel '
+                             f'and {raster_uv} raster_uv')
+    return got
+
+
+def phase_web(tmp: str, smi: str):
+    """The web server as `python -m ctrlhair_tpu_torch.ui.web` builds it
+    (ui.web.build_web_editor: Backend() on the card from model_trained/),
+    served from a daemon thread on 127.0.0.1 and driven over HTTP: the page,
+    both photos, the state, every slider, the three transfers, the three
+    random draws, the four images and one bad request of each kind.
+    Returns (the WebEditor, its launches, its record)."""
+    import threading
+    from ctrlhair_tpu_torch.ui import web
+    from ctrlhair_tpu_torch.ui.app import SLIDER_SPECS
+    from ctrlhair_tpu_torch.utils.image import decode_png, read_rgb, write_rgb
+    from ctrlhair_tpu_torch.utils.metrics import ssim
+    from ctrlhair_tpu_torch.utils.profiling import benchmark
+    sample = os.path.join(ROOT, 'samples', 'input.png')
+    mirror = os.path.join(tmp, 'mirror.png')
+    write_rgb(mirror, np.ascontiguousarray(read_rgb(sample)[:, ::-1]))
+    jpeg = os.path.join(tmp, 'photo.jpg')
+    with open(jpeg, 'wb') as f:
+        f.write(b'\xff\xd8\xff\xe0\x00\x10JFIF\x00' + bytes(64))
+
+    t0 = time.perf_counter()
+    editor = web.build_web_editor()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    be = editor.backend
+    if be.device.type != 'cuda' or set(be.loaded_families) != SHIPPED:
+        raise AssertionError('build_web_editor() did not build on the card '
+                             f'from model_trained/: {be.loaded_families}')
+    server = editor.make_server('127.0.0.1', 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f'http://127.0.0.1:{server.server_address[1]}'
+    try:
+        steps = [('page', '/', None, None, 200),
+                 ('load_input', '/load', {'path': sample}, None, 200),
+                 ('load_target', '/load', {'path': mirror,
+                                           'which': 'target'}, None, 200),
+                 ('state', '/state', None, None, 200)]
+        for (group, _, idx), val in zip(SLIDER_SPECS, WEB_SLIDER_VALUES):
+            steps.append((f'slider_{group}_{idx}', '/slider',
+                          {'group': group, 'idx': idx, 'value': val}, None,
+                          200))
+        steps += [(f'{kind}_{arg}', f'/{kind}', {'arg': arg}, None, 200)
+                  for kind, args in (('transfer', ('color', 'texture',
+                                                   'shape')),
+                                     ('random', ('texture', 'shape',
+                                                 'curliness')))
+                  for arg in args]
+        steps += [(f'image_{n}', f'/image/{n}', None, None, 200)
+                  for n in ('input', 'mask', 'target', 'output')]
+        steps += [('bad_image', '/image/nope', None, None, 404),
+                  ('bad_path', '/nope', None, None, 404),
+                  ('bad_json', '/slider', None, b'not json', 400),
+                  ('bad_route', '/nope', {'arg': 'color'}, None, 404),
+                  ('bad_slider', '/slider', {'group': 'color'}, None, 500),
+                  ('bad_load', '/load', {'path': jpeg}, None, 500)]
+        reset_launches()
+        results = {}
+        for name, path, payload, raw, want in steps:
+            results[name] = http(base, path, payload, raw)
+            if results[name][0] != want:
+                raise AssertionError(f'web {name}: HTTP {results[name][0]}, '
+                                     f'expected {want}: '
+                                     f'{results[name][1][:300]!r}')
+        launches = read_launches('web script', WEB_RENDERS, 1)
+        if b'not a PNG' not in results['bad_load'][1]:
+            raise AssertionError(f'/load of a JPEG: {results["bad_load"]}')
+        state = json.loads(results['state'][1])
+        if len(state['sliders']) != 11 or not np.isfinite(
+                list(state['sliders'].values())).all():
+            raise AssertionError(f'/state: {state}')
+        for n in ('input', 'mask', 'target', 'output'):
+            if not np.array_equal(decode_png(results[f'image_{n}'][1]),
+                                  editor.images[n]):
+                raise AssertionError(f'/image/{n} does not decode to the '
+                                     'held array')
+        out = editor.images['output']
+        s = be.cfg.edit_size
+        if out.dtype != np.uint8 or out.shape != (s, s, 3):
+            raise AssertionError(f'/image/output: {out.dtype} {out.shape}')
+        fresh = be.output()
+        same = float(ssim(fresh, out))
+        if same != 1.0:
+            raise AssertionError(f'ssim of the served output against a fresh '
+                                 f'Backend.output(): {same}')
+        # round trips, each ended by torch.cuda.synchronize(), medians
+        p50 = lambda fn, n: benchmark(fn, iters=n, warmup=1)['p50_s'] * 1e3
+        times = {
+            'web.slider': p50(lambda: ok(base, '/slider', {
+                'group': 'color', 'idx': 0, 'value': 0.5}), 10),
+            'web.state': p50(lambda: ok(base, '/state'), 10),
+            'web.image_output': p50(lambda: ok(base, '/image/output'), 20),
+            'web.transfer_shape': p50(lambda: ok(base, '/transfer', {
+                'arg': 'shape'}), 5),
+            'web.load_input': p50(lambda: ok(base, '/load', {
+                'path': sample}), 5),
+        }
+        # one render on this thread, on the editor's worker, and on a new
+        # thread each time (as the server's handler threads are), with
+        # cuDNN on and off: what a cold thread costs, and whose state it is
+        on_worker = lambda fn: editor._worker.submit(fn).result()
+        times['backend.output'] = p50(be.output, 10)
+        times['backend.output_worker_thread'] = p50(
+            lambda: on_worker(be.output), 10)
+        times['backend.output_new_thread'] = p50(
+            lambda: in_new_thread(be.output), 5)
+        with torch.backends.cudnn.flags(enabled=False):
+            times['backend.output_no_cudnn'] = p50(be.output, 5)
+            times['backend.output_new_thread_no_cudnn'] = p50(
+                lambda: in_new_thread(be.output), 5)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    record = {'build_ms': build_ms, 'requests': len(steps),
+              'renders': WEB_RENDERS, 'launches': launches,
+              'state_sliders': state['sliders'], 'ssim_output_vs_fresh': same,
+              'png_bytes_output': len(results['image_output'][1]),
+              'median_ms': times}
+    log(f'[web] build_web_editor() in {build_ms:.1f} ms; {len(steps)} '
+        f'requests over HTTP, {WEB_RENDERS} renders: launches {launches}, '
+        'all masked CG by the cluster kernel; every PNG decodes to the held '
+        f'array; ssim(served output, fresh output) {same}')
+    for k, v in times.items():
+        what = 'HTTP round trip' if k.startswith('web.') else 'wall'
+        log(f'[time] {k}: {v:.3f} ms median {what} ({smi})')
+    return editor, launches, record
+
+
+def phase_curation(be, tmp: str, smi: str):
+    """auto_curate('texture') and one render_candidate_grids on the web
+    session's Backend, each between reset_launches() and read_launches()."""
+    from ctrlhair_tpu_torch.pipeline.direction_finder import (
+        TEXTURE_SLOTS, auto_curate, render_candidate_grids)
+    from ctrlhair_tpu_torch.utils.image import read_png
+    reset_launches()
+    t0 = time.perf_counter()
+    dirs, report = auto_curate(be, 'texture', n_candidates=3,
+                               values=(-1.0, 0.0, 1.0))
+    torch.cuda.synchronize()
+    curate_ms = (time.perf_counter() - t0) * 1e3
+    # 3 candidates x 3 values, then each of the 2 slots re-measured
+    curate = read_launches('auto_curate', 15, 0)
+    mat = np.stack(dirs).astype(np.float64)
+    gram_err = float(np.abs(mat @ mat.T - np.eye(len(dirs))).max())
+    if len(dirs) != len(TEXTURE_SLOTS) or gram_err > 1e-4:
+        raise AssertionError(f'auto_curate directions: {len(dirs)}, '
+                             f'|D D^T - I| {gram_err}')
+    reset_launches()
+    t0 = time.perf_counter()
+    render_candidate_grids(be, 'texture', os.path.join(tmp, 'grids'),
+                           n_candidates=2, values=(-1.0, 1.0))
+    torch.cuda.synchronize()
+    grids_ms = (time.perf_counter() - t0) * 1e3
+    grids = read_launches('render_candidate_grids', 4, 0)
+    cell = be.cfg.edit_size
+    for i in range(2):
+        grid = read_png(os.path.join(tmp, 'grids', f'candidate_{i:03d}.png'))
+        if grid.shape != (cell + 4, 2 * (cell + 2) + 2, 3):
+            raise AssertionError(f'grid {i}: {grid.shape}')
+    record = {'auto_curate_ms': curate_ms, 'grids_ms': grids_ms,
+              'launches': {'auto_curate': curate, 'grids': grids},
+              'gram_error': gram_err,
+              'picks': [{k: r[k] for k in ('label', 'candidate', 'slope',
+                                           'score')} for r in report]}
+    log(f'[curation] auto_curate(texture, 3 candidates, 3 values): '
+        f'{curate_ms:.3f} ms, launches {curate}, |D D^T - I| {gram_err:.2e}, '
+        f'picks {record["picks"]}; render_candidate_grids(2 x 2): '
+        f'{grids_ms:.3f} ms, launches {grids} ({smi})')
+    return curate['masked_cg'] + grids['masked_cg'], record
+
+
+def phase_demo(tmp: str, smi: str):
+    """`python -m ctrlhair_tpu_torch.ui.demo --headless` in this process, on
+    a Backend() of its own: one blended output written as a PNG."""
+    from ctrlhair_tpu_torch.ui import demo
+    from ctrlhair_tpu_torch.utils.image import read_png
+    out_path = os.path.join(tmp, 'demo.png')
+    reset_launches()
+    t0 = time.perf_counter()
+    out = demo.main(['--headless', out_path, '--input',
+                     os.path.join(ROOT, 'samples', 'input.png'),
+                     '--target', os.path.join(tmp, 'mirror.png')])
+    torch.cuda.synchronize()
+    demo_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches('demo', 1, 0)
+    written = read_png(out_path)
+    if written.shape != (256, 256, 3) or not np.array_equal(written, out):
+        raise AssertionError(f'demo wrote {written.shape}')
+    log(f'[demo] --headless: {demo_ms:.3f} ms in this process, Backend() '
+        f'build included; launches {launches}; wrote a 256x256 PNG ({smi})')
+    return launches, {'wall_ms': demo_ms, 'launches': launches}
+
+
+def phase_multigrid(case, blend_ms: float, smi: str):
+    """poisson_blend(method='mg') on the editor session's blend system (the
+    request under the edited hair mask) on the card against the same call
+    on the CPU; its distance from K1's solution of that system."""
+    from ctrlhair_tpu_torch.ops.poisson import poisson_blend
+    from ctrlhair_tpu_torch.ops.poisson_pallas import MASKED_CG
+    from ctrlhair_tpu_torch.utils.metrics import ssim
+    src, tgt, mask = (t[0] for t in case)
+    before = MASKED_CG.launches
+    card = poisson_blend(src, tgt, mask, method='mg')
+    torch.cuda.synchronize()
+    if MASKED_CG.launches != before:
+        raise AssertionError('the multigrid blend launched the masked CG')
+    cpu = poisson_blend(src.cpu(), tgt.cpu(), mask.cpu(), method='mg')
+    k1 = poisson_blend(src, tgt, mask, iterations=200)
+    vs_cpu = float((card.cpu() - cpu).abs().max())
+    diff = (card - k1).abs()
+    rec = {'shape': list(card.shape), 'max_vs_cpu': vs_cpu,
+           'max_vs_k1': float(diff.max()), 'mean_vs_k1': float(diff.mean()),
+           'ssim_vs_k1': float(ssim(card, k1)),
+           'finite': bool(torch.isfinite(card).all()),
+           'mg_ms': wall_ms(lambda: poisson_blend(src, tgt, mask,
+                                                  method='mg'), 5),
+           'cg_200_ms': wall_ms(lambda: poisson_blend(src, tgt, mask,
+                                                      iterations=200), 5),
+           'output_blend_ms': blend_ms}
+    log(f'[multigrid] 10 V-cycles on {tuple(card.shape)}: card vs CPU max '
+        f'{vs_cpu:.6f} (bar {MG_BAR}); vs K1 (200 CG iterations) max '
+        f'{rec["max_vs_k1"]:.4f} mean {rec["mean_vs_k1"]:.4f} ssim '
+        f'{rec["ssim_vs_k1"]:.6f}; {rec["mg_ms"]:.3f} ms wall against '
+        f'{rec["cg_200_ms"]:.3f} ms for poisson_blend by K1 and '
+        f'{blend_ms:.3f} ms for output.blend ({smi})')
+    if not (rec['finite'] and vs_cpu <= MG_BAR):
+        raise AssertionError(f'multigrid blend: {rec}')
+    return rec
+
+
+def phase_serving(mg_case, blend_ms: float, smi: str):
+    """The serving surface: the web server over HTTP, curation on its
+    session, then (the web session freed) the headless demo on a Backend of
+    its own, then the multigrid blend.  Returns (launches by path, record)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        editor, web_launches, web_rec = phase_web(tmp, smi)
+        cur_launches, cur_rec = phase_curation(editor.backend, tmp, smi)
+        editor.close()
+        del editor
+        gc.collect()
+        torch.cuda.empty_cache()
+        demo_launches, demo_rec = phase_demo(tmp, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mg_rec = phase_multigrid(mg_case, blend_ms, smi)
+    launches = {
+        'masked_cg': {'web': web_launches['masked_cg'],
+                      'curation': cur_launches,
+                      'demo': demo_launches['masked_cg']},
+        'raster_uv': {'web': web_launches['raster_uv'], 'curation': 0,
+                      'demo': demo_launches['raster_uv']}}
+    return launches, {'web': web_rec, 'curation': cur_rec, 'demo': demo_rec,
+                      'multigrid': mg_rec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1213,6 +1560,9 @@ def main() -> int:
             lambda: editor._edit_render(codes, regen, lat), 5)
         stage_ms['output.blend'] = wall_ms(
             lambda: editor._blend(face_t, gen, label, regen), 5)
+        # the blend system of the request under the edited hair mask, kept
+        # for the multigrid blend after this editor is freed
+        mg_case = blend_case(editor, a_in, lat, img_in, hair_label, None)
     stage_ms.update(backend_ms)
     for k, v in stage_ms.items():
         log(f'[time] {k}: {v:.3f} ms wall')
@@ -1239,6 +1589,12 @@ def main() -> int:
     for k, v in deployment['median_ms'].items():
         log(f'[time] deployment {k}: {v:.3f} ms median wall of '
             f'{DEPLOYMENT_REPS} ({smi})')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the serving surface: web server, curation, demo, multigrid
+    s_launches, serving = phase_serving(mg_case, stage_ms['output.blend'],
+                                        smi)
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
     raster_entry['case']['ptxas'] = ptxas['raster_uv']
@@ -1247,20 +1603,22 @@ def main() -> int:
         'source': 'ctrlhair_tpu_torch/csrc/masked_cg.cu',
         'replaces': 'ctrlhair_tpu/ops/poisson_pallas.py:33',
         'launches': launches + b_launches['masked_cg']
-        + d_launches['masked_cg'],
+        + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values()),
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
-                             'deployment': d_launches['masked_cg']},
+                             'deployment': d_launches['masked_cg'],
+                             **s_launches['masked_cg']},
         **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
         'source': 'ctrlhair_tpu_torch/csrc/raster_uv.cu',
         'replaces': 'ctrlhair_tpu/ops/raster_pallas.py:146',
         'launches': raster_launches + b_launches['raster_uv']
-        + d_launches['raster_uv'],
+        + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values()),
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
-                             'deployment': d_launches['raster_uv']},
+                             'deployment': d_launches['raster_uv'],
+                             **s_launches['raster_uv']},
         **raster_entry,
     }]
     if set(kernels[0]) != set(kernels[1]):
@@ -1275,7 +1633,7 @@ def main() -> int:
         'stage_ms': stage_ms, 'profile': profile,
         'session_check': session_check, 'reference': reference,
         'backend_check': {**warp_check, **routes_check},
-        'deployment': deployment,
+        'deployment': deployment, 'serving': serving,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

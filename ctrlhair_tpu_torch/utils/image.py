@@ -1,11 +1,13 @@
 # Host-side image I/O and normalisation helpers.
 #
-# Port of ctrlhair_tpu/utils/image.py, the part the session needs: PNG
-# read/write and label-map colouring.  The PNG codec is the standard
-# library's zlib plus numpy (the JAX package reads and writes through PIL):
+# Port of ctrlhair_tpu/utils/image.py: PNG read/write (files and bytes),
+# uint8 <-> [-1,1] float conversion, label-map colouring and the grid
+# canvas.  The PNG codec is the standard library's zlib plus numpy (the JAX
+# package reads and writes through PIL):
 # 8-bit greyscale, RGB and RGBA, not interlaced, all five scanline filters
 # (PNG spec, section 9); anything else raises.
-# (ref counterparts: util/imutil.py:13-24, util/mask_color_util.py:15-64)
+# (ref counterparts: util/imutil.py:13-24, util/canvas_grid.py:15-34,
+#  util/mask_color_util.py:15-64)
 
 from __future__ import annotations
 
@@ -81,11 +83,10 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit greyscale [H,W], RGB [H,W,3] or RGBA [H,W,4] PNG, not
-    interlaced -> uint8 array.  Other PNGs raise ValueError."""
-    with open(path, 'rb') as f:
-        data = f.read()
+def decode_png(data: bytes, name: str = 'PNG') -> np.ndarray:
+    """The bytes of an 8-bit greyscale [H,W], RGB [H,W,3] or RGBA [H,W,4]
+    PNG, not interlaced -> uint8 array.  Other PNGs raise ValueError, whose
+    message starts with `name`."""
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b'IHDR':
@@ -93,31 +94,31 @@ def read_png(path: str) -> np.ndarray:
         elif kind == b'IDAT':
             idat.append(body)
     if header is None or not idat:
-        raise ValueError(f'{path}: PNG without IHDR or IDAT')
+        raise ValueError(f'{name}: PNG without IHDR or IDAT')
     width, height, depth, colour, method, filt, interlace = header
     if depth != 8 or colour not in _CHANNELS or method or filt or interlace:
-        raise ValueError(f'{path}: unsupported PNG (bit depth {depth}, '
+        raise ValueError(f'{name}: unsupported PNG (bit depth {depth}, '
                          f'colour type {colour}, interlace {interlace}); '
                          '8-bit grey, RGB or RGBA, not interlaced, expected')
     ch = _CHANNELS[colour]
     try:
         raw = zlib.decompress(b''.join(idat))
     except zlib.error as e:
-        raise ValueError(f'{path}: bad PNG image data: {e}') from e
+        raise ValueError(f'{name}: bad PNG image data: {e}') from e
     img = _unfilter(raw, height, width * ch, ch)
     return img.reshape(height, width) if ch == 1 else \
         img.reshape(height, width, ch)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """uint8 [H,W] (grey), [H,W,3] (RGB) or [H,W,4] (RGBA) -> PNG file,
-    every scanline unfiltered, zlib level 6."""
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H,W] (grey), [H,W,3] (RGB) or [H,W,4] (RGBA) -> the bytes of
+    a PNG, every scanline unfiltered, zlib level 6."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
     colour = {1: 0, 3: 2, 4: 6}.get(1 if img.ndim == 2 else img.shape[-1])
     if img.ndim not in (2, 3) or colour is None:
-        raise ValueError(f'write_png: cannot write shape {img.shape}')
+        raise ValueError(f'encode_png: cannot write shape {img.shape}')
     height, width = img.shape[:2]
     rows = np.concatenate([np.zeros((height, 1), np.uint8),
                            img.reshape(height, -1)], axis=1)
@@ -126,12 +127,24 @@ def write_png(path: str, img: np.ndarray) -> None:
         return (struct.pack('>I', len(body)) + kind + body
                 + struct.pack('>I', zlib.crc32(kind + body)))
 
+    return (PNG_SIGNATURE
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8,
+                                         colour, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
+            + chunk(b'IEND', b''))
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG file -> uint8 array (see decode_png)."""
+    with open(path, 'rb') as f:
+        return decode_png(f.read(), path)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """uint8 [H,W], [H,W,3] or [H,W,4] -> PNG file (see encode_png)."""
+    data = encode_png(img)
     with open(path, 'wb') as f:
-        f.write(PNG_SIGNATURE
-                + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8,
-                                             colour, 0, 0, 0))
-                + chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
-                + chunk(b'IEND', b''))
+        f.write(data)
 
 
 def read_rgb(path: str) -> np.ndarray:
@@ -145,6 +158,17 @@ def read_rgb(path: str) -> np.ndarray:
 
 def write_rgb(path: str, img: np.ndarray) -> None:
     write_png(path, np.asarray(img).astype(np.uint8))
+
+
+def to_float(img_u8: np.ndarray) -> np.ndarray:
+    """uint8 [0,255] -> float32 [-1,1] (ref: hair_editor.py:121-123)."""
+    return np.asarray(img_u8, dtype=np.float32) / 127.5 - 1.0
+
+
+def to_uint8(img_f: np.ndarray) -> np.ndarray:
+    """float [-1,1] -> uint8 [0,255] (truncating, as the JAX twin)."""
+    img = np.asarray(img_f, dtype=np.float32) * 127.5 + 127.5
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def mask_to_rgb(label: np.ndarray, draw_type: int = 2) -> np.ndarray:
@@ -167,3 +191,27 @@ def mask_to_rgb(label: np.ndarray, draw_type: int = 2) -> np.ndarray:
         color[~keep] = [237, 28, 36]
     lut = np.concatenate([color, np.full((256 - len(color), 3), 255, np.uint8)])
     return lut[np.where(label == UNKNOWN_LABEL, 255, label)]
+
+
+class Canvas:
+    """Grid canvas for sample sheets (ref: util/canvas_grid.py:15-34)."""
+
+    def __init__(self, rows: int, cols: int, cell: int = 256, margin: int = 2):
+        self.cell = cell
+        self.margin = margin
+        h = rows * (cell + margin) + margin
+        w = cols * (cell + margin) + margin
+        self.img = np.full((h, w, 3), 255, np.uint8)
+
+    def paste(self, row: int, col: int, img: np.ndarray) -> None:
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            img = to_uint8(img)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, -1)
+        y = row * (self.cell + self.margin) + self.margin
+        x = col * (self.cell + self.margin) + self.margin
+        self.img[y:y + img.shape[0], x:x + img.shape[1]] = img
+
+    def save(self, path: str) -> None:
+        write_rgb(path, self.img)

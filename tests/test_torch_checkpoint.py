@@ -4,7 +4,8 @@
 # trees written by the JAX save_checkpoint decode to the same keys and
 # bit-equal leaves (bfloat16 compared after its exact widening to float32).
 # Also: the port imports nothing of JAX, flax, msgpack, cv2, PIL or the JAX
-# package (an import scan of every module and of chip_smoke.py).
+# package (an import scan of every module and of chip_smoke.py), and tkinter
+# only inside ui/app.EditorApp.
 import ast
 import glob
 import os
@@ -206,3 +207,29 @@ def test_port_imports_nothing_of_jax(rel):
             names.append(node.module)
     bad = sorted(n for n in names if n.split('.')[0] in FORBIDDEN)
     assert not bad, f'{rel} imports {bad}'
+
+
+def _imports(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Import):
+            yield sub, [a.name for a in sub.names]
+        elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+            yield sub, [sub.module]
+
+
+def test_port_imports_tkinter_only_in_the_app():
+    """tkinter is imported only inside ui/app.EditorApp (when a window is
+    built), so the web server, the headless demo and the tests never need
+    a display or Tk."""
+    allowed, found = set(), set()
+    for rel in PORT_FILES:
+        with open(os.path.join(REPO, rel)) as f:
+            tree = ast.parse(f.read(), rel)
+        for node, names in _imports(tree):
+            if any(n.split('.')[0] == 'tkinter' for n in names):
+                found.add((rel, node.lineno))
+        if rel == os.path.join('ctrlhair_tpu_torch', 'ui', 'app.py'):
+            cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                       and n.name == 'EditorApp')
+            allowed = {(rel, node.lineno) for node, _ in _imports(cls)}
+    assert found and found <= allowed, sorted(found - allowed)

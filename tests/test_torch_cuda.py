@@ -1,6 +1,7 @@
 # Card-only tests of the PyTorch port: the masked-CG and UV-rasteriser CUDA
-# kernels against their plain versions, the warp's kernel route, and the
-# float32 slice on the card against the same slice on the CPU.  They skip without a CUDA device.  This file imports nothing of
+# kernels against their plain versions, the warp's kernel route, the
+# multigrid blend and the float32 slice on the card against the same on the
+# CPU.  They skip without a CUDA device.  This file imports nothing of
 # JAX, so on a machine with a card and no JAX it runs without the suite's
 # conftest:
 #     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -233,3 +234,25 @@ def test_warp_on_card_launches_kernel_and_matches_host(card):
                                         raster='host')
     assert rp.RASTER_UV.launches == before + 1
     assert (got.cpu().numpy() == host).mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(64, 64), (68, 68), (256, 256), (63, 64)])
+def test_multigrid_blend_on_card_matches_cpu(card, h, w):
+    """poisson_blend(method='mg') on CUDA tensors within 0.05 of the same
+    call on the CPU (the bar of chip_smoke.py); the V-cycles launch no
+    masked CG, the odd-size fallback one."""
+    from ctrlhair_tpu_torch.ops.poisson import poisson_blend
+    rng = np.random.default_rng(h + w)
+    src = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    tgt = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    mask = np.zeros((h, w), np.float32)
+    mask[h // 6:5 * h // 6, w // 6:5 * w // 6] = 1.0
+    args = [torch.from_numpy(a) for a in (src, tgt, mask)]
+    before = MASKED_CG.launches
+    got = poisson_blend(*(a.to(card) for a in args), method='mg')
+    torch.cuda.synchronize()
+    assert MASKED_CG.launches == before + (h % 2 or w % 2)
+    want = poisson_blend(*args, method='mg')
+    assert got.device == card and torch.isfinite(got).all()
+    assert float((got.cpu() - want).abs().max()) <= 0.05

@@ -1,7 +1,8 @@
 # The port's small ops against their JAX twins on the same numpy inputs:
 # masks, colour space (exact on a uint8 grid), resizes (both conventions),
-# morphology (exact), the Poisson blend and its masked-CG core.  The JAX
-# side of the Pallas blend runs in interpret mode, as its own tests run it.
+# morphology (exact), the Poisson blend (its masked-CG core and the
+# multigrid method).  The JAX side of the Pallas blend runs in interpret
+# mode, as its own tests run it.
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -192,3 +193,68 @@ def test_masked_cg_dispatch_on_cpu():
         masked_cg_cuda(b, u, x0, 20)
     with pytest.raises(ValueError):
         masked_cg(b.to('meta'), u.to('meta'), x0.to('meta'), 20)
+
+
+# --------------------------------------------------------------- multigrid
+# poisson_blend(method='mg') against the JAX 'mg' on the same inputs: the
+# same V-cycles in float32, summed in other orders, stay within 0.01 on
+# [0,255] (measured: at most 1.2e-3 at 256 px).  The odd-size case falls
+# back to CG on both sides (the port's fused blend, the JAX XLA CG, 300
+# iterations each), within the same bar.
+MG_BAR = 0.01
+
+
+def _mg_case(rng, h, w, kind):
+    src = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    tgt = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    mask = np.zeros((h, w), np.float32)
+    if kind == 'block':
+        mask[h // 6:5 * h // 6, w // 6:5 * w // 6] = 1.0
+    else:                                   # a ragged random region
+        mask[rng.random((h, w)) > 0.4] = 1.0
+    return src, tgt, mask
+
+
+@pytest.mark.parametrize('h,w,kind', [
+    (64, 64, 'block'), (64, 64, 'ragged'),
+    (68, 68, 'block'),        # the odd halving chain 68 -> 34 -> 17
+    (256, 256, 'block'),
+    (63, 64, 'block'),        # odd H: CG fallback
+    (48, 35, 'ragged'),       # odd W: CG fallback
+])
+def test_multigrid_blend_matches_jax(h, w, kind):
+    rng = np.random.default_rng(h * 1000 + w)
+    src, tgt, mask = _mg_case(rng, h, w, kind)
+    got = poisson_blend(T(src), T(tgt), T(mask), method='mg').numpy()
+    ref = np.asarray(j_poisson_blend(jnp.asarray(src), jnp.asarray(tgt),
+                                     jnp.asarray(mask), method='mg'))
+    assert got.shape == ref.shape == (h, w, 3) and np.isfinite(got).all()
+    assert float(np.abs(got - ref).max()) < MG_BAR
+
+
+def test_multigrid_pyramid_and_fallback():
+    """The unknown pyramid stops at <= 16 rows or at an odd side, as the
+    JAX twin's; an odd size takes the fused CG (no launch on the CPU); an
+    unknown method raises."""
+    from ctrlhair_tpu.ops.poisson import _build_unknown_pyramid as j_pyramid
+    from ctrlhair_tpu_torch.ops.poisson import _build_unknown_pyramid
+    rng = np.random.default_rng(1)
+    for h, w in ((256, 256), (68, 68), (272, 272), (64, 36)):
+        unk = (rng.random((h, w, 1)) > 0.3).astype(np.float32)
+        ref = j_pyramid(jnp.asarray(unk))
+        got = _build_unknown_pyramid(
+            T(np.ascontiguousarray(unk.transpose(2, 0, 1)))[None])
+        assert [tuple(g.shape[-2:]) for g in got] == \
+            [tuple(r.shape[:2]) for r in ref]
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g[0, 0].numpy(),
+                                          np.asarray(r)[..., 0])
+    src, tgt, mask = _mg_case(rng, 31, 40, 'block')
+    before = MASKED_CG.launches
+    got = poisson_blend(T(src), T(tgt), T(mask), method='mg', iterations=50)
+    want = poisson_blend_fused(T(src)[None], T(tgt)[None], T(mask)[None],
+                               50)[0]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert MASKED_CG.launches == before
+    with pytest.raises(ValueError):
+        poisson_blend(T(src), T(tgt), T(mask), method='sor')
