@@ -25,7 +25,16 @@ Drives the port's four paths at the full default PipelineConfig() width:
      bad request of each kind; the served PNGs decode to the held arrays),
      then auto_curate('texture') and render_candidate_grids on its session;
      the headless demo (ui.demo.main) in this process; and the multigrid
-     blend on the card against the CPU.
+     blend on the card against the CPU;
+  5. the training slice, which launches neither kernel (both counts held
+     at 0): the colour/texture trainer at ColorTextureConfig() (batch 128)
+     with a frozen seeded SEANConfig() SEAN and lambda_rec_img on from step
+     0, both predictor trainers at their configs (batch 256), five steps
+     each, each held to the port's CPU step from the same state, batch and
+     draws, to a NaN batch that must leave the state bit-identical, and to
+     a save after step 2 whose resume must equal the unbroken run bit for
+     bit; then run_color_texture.main([--synthetic, --steps 3]) in this
+     process, its checkpoint read back by the port's reader.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -1238,8 +1247,9 @@ def phase_web(tmp: str, smi: str):
                                      f'expected {want}: '
                                      f'{results[name][1][:300]!r}')
         launches = read_launches('web script', WEB_RENDERS, 1)
-        if b'not a PNG' not in results['bad_load'][1]:
-            raise AssertionError(f'/load of a JPEG: {results["bad_load"]}')
+        if b'JPEG: no marker' not in results['bad_load'][1]:
+            raise AssertionError(f'/load of a broken JPEG: '
+                                 f'{results["bad_load"]}')
         state = json.loads(results['state'][1])
         if len(state['sliders']) != 11 or not np.isfinite(
                 list(state['sliders'].values())).all():
@@ -1430,6 +1440,494 @@ def phase_serving(mg_case, blend_ms: float, smi: str):
                       'multigrid': mg_rec}
 
 
+# ------------------------------------------------------------- training
+TRAIN_STEPS = 5
+CT_BATCH, PREDICTOR_BATCH = 128, 256
+# card against the port's CPU step, float32 with TF32 off: every loss and
+# every leaf of the state within this much of the CPU's, scaled by the
+# larger of 1 and the leaf's largest magnitude (cuBLAS / cuDNN and the
+# CPU's BLAS sum in other orders)
+TRAIN_CARD_BAR = 1e-4
+
+
+def deterministic(fn):
+    """fn run with cuDNN held to deterministic algorithms, so that two runs
+    of the same steps (the resume check) can agree bit for bit."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+    return run
+
+
+def autotuned(fn):
+    """fn run with cudnn.benchmark on (cuDNN times its algorithms for each
+    new shape and keeps the fastest), then off again: a reading of what
+    the convolutions could cost, not a setting of any path."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.benchmark = saved
+    return run
+
+
+def profile_step(fn, step_ms: float) -> dict:
+    """torch.profiler over one warm call: the summed device ms of the
+    kernels it launched and their count (kernel records only: operator
+    records carry their kernels' time too, and CUPTI's own buffer records
+    are no kernels), the five longest, and the card's idle share of a step
+    of `step_ms` (the unprofiled median: the profiler slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith(('Activity Buffer', 'Buffer Flush'))]
+    events.sort(key=lambda kv: -kv[1])
+    device = sum(ms for _, ms, _ in events)
+    return {'device_ms': device, 'launches': sum(c for _, _, c in events),
+            'step_ms': step_ms, 'idle_share': max(0.0, 1.0 - device / step_ms),
+            'top': [(name[:60], ms) for name, ms, _ in events[:5]]}
+
+
+def tree_leaves(tree, prefix=()):
+    """(path, array) of every leaf; a dict keyed by path tuples (as
+    card_against_cpu rebuilds one) is walked as the tree it flattens."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            key = k if isinstance(k, tuple) else (k,)
+            yield from tree_leaves(tree[k], prefix + key)
+    elif tree is not None:
+        yield prefix, np.asarray(tree)
+
+
+def tree_diff(got, ref) -> tuple:
+    """(worst scaled difference, its leaf) between two state trees of the
+    same keys."""
+    g, r = list(tree_leaves(got)), list(tree_leaves(ref))
+    if [p for p, _ in g] != [p for p, _ in r]:
+        raise AssertionError('state trees differ in their keys')
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(g, r):
+        if b.size == 0:
+            continue
+        if a.shape != b.shape:
+            raise AssertionError(f'{"/".join(path)}: shape {a.shape} '
+                                 f'against {b.shape}')
+        d = float(np.abs(a.astype(np.float64) - b).max()) / max(
+            1.0, float(np.abs(b).max()))
+        if not d <= worst:
+            worst, where = d, '/'.join(path)
+    return worst, where
+
+
+def bit_equal(got, ref) -> bool:
+    g, r = list(tree_leaves(got)), list(tree_leaves(ref))
+    return [p for p, _ in g] == [p for p, _ in r] and all(
+        a.shape == b.shape and np.array_equal(a, b, equal_nan=False)
+        for (_, a), (_, b) in zip(g, r))
+
+
+def without_step(tree):
+    return {k: v for k, v in tree.items() if k != 'step'}
+
+
+def to_device(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_steps(step_fn, state, batches, draws_fn=None):
+    """Run steps on the given batches; returns (state, metrics of the last,
+    per-step host ms, each ended by torch.cuda.synchronize())."""
+    times, metrics = [], None
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, metrics, times
+
+
+def check_metrics(metrics, ref, what):
+    worst = 0.0
+    for k, v in ref.items():
+        a, b = float(metrics[k]), float(v)
+        if k == 'finite':
+            if a != b:
+                raise AssertionError(f'{what}: finite {a} against {b}')
+            continue
+        worst = max(worst, abs(a - b) / max(1.0, abs(b)))
+    if not worst <= TRAIN_CARD_BAR:
+        raise AssertionError(f'{what}: a loss differs by {worst:.3g} '
+                             f'(bar {TRAIN_CARD_BAR})')
+    return worst
+
+
+def ill_conditioned(card, cpu, part: str) -> dict:
+    """{parameter path: mask} of the entries of one ModelOpt whose first
+    gradient the two devices do not reproduce to 1% (mu is 0.5 g after the
+    first step): rounding noise.  Adam divides a gradient by its own
+    magnitude, so such an entry moves by about +-lr whichever sign the
+    noise has.  The biases a batch-statistics BatchNorm cancels, and a
+    WGAN critic's bias of a unit whose slope is the same on every sample,
+    have a true gradient of zero and are such entries."""
+    mus = [dict(tree_leaves(t[part]['opt_state']['0']['mu']))
+           for t in (card, cpu)]
+    return {path: np.abs(mus[0][path] - a) > 1e-2 * np.abs(a)
+            for path, a in mus[1].items()}
+
+
+def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict):
+    """One step on the card against the port's CPU step from the same
+    state, batch and draws.  Every loss and every leaf of the state within
+    TRAIN_CARD_BAR (scaled by the leaf's magnitude), the gradients (Adam's
+    mu) included; the parameter entries whose gradient is rounding noise
+    (ill_conditioned) are held instead to a move of at most 2 lr on both
+    devices.  `lr`: {part: learning rate}."""
+    out = []
+    for device in ('cuda', 'cpu'):
+        trainer, state, args = make_trainer(device)
+        state.load_tree(init_tree)
+        b = to_device(batch, device)
+        d = {k: ([m.to(device) for m in v] if isinstance(v, list)
+                 else v.to(device)) for k, v in draws.items()}
+        state, metrics = trainer.train_step(state, b, *args(state), d)
+        out.append((state.to_tree(), {k: v.cpu() for k, v in
+                                      metrics.items()}))
+    (card, card_m), (cpu, cpu_m) = out
+    loss_err = check_metrics(card_m, cpu_m, 'card against CPU')
+    noisy = 0
+    for part, part_lr in lr.items():
+        masks = ill_conditioned(card, cpu, part)
+        init = dict(tree_leaves(init_tree[part]['params']))
+        sides = [dict(tree_leaves(t[part]['params'])) for t in (card, cpu)]
+        for path, mask in masks.items():
+            for side in sides:
+                moved = np.abs(side[path] - init[path])[mask]
+                if moved.size and moved.max() > 2 * part_lr:
+                    raise AssertionError(
+                        f'{part}/{"/".join(path)}: an entry with a noise '
+                        f'gradient moved {moved.max():.3g} > 2 lr')
+                side[path] = np.where(mask, 0.0, side[path])
+            noisy += int(mask.sum())
+        for t, side in zip((card, cpu), sides):
+            t[part]['params'] = side
+    err, where = tree_diff(card, cpu)
+    if not err <= TRAIN_CARD_BAR:
+        raise AssertionError(f'card against CPU: {where} differs by '
+                             f'{err:.3g} (bar {TRAIN_CARD_BAR})')
+    return {'state_max_scaled_err': err, 'worst_leaf': where,
+            'loss_max_scaled_err': loss_err,
+            'noise_gradient_entries': noisy}
+
+
+def nan_and_resume(make_trainer, init_tree, batches, nan_batch):
+    """A NaN batch leaves the state bit-identical (its step aside); a save
+    after step 2 and a resume to the end equal the unbroken run bit for
+    bit."""
+    import tempfile
+    from ctrlhair_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    trainer, state, args = make_trainer('cuda')
+    state.load_tree(init_tree)
+    for b in batches:
+        state, _ = trainer.train_step(state, b, *args(state))
+    unbroken = state.to_tree()
+    state, m = trainer.train_step(state, nan_batch, *args(state))
+    after = state.to_tree()
+    if bool(m['finite']) or int(after['step']) != int(unbroken['step']) + 1 \
+            or not bit_equal(without_step(after), without_step(unbroken)):
+        raise AssertionError('a NaN batch moved the training state')
+    trainer, state, args = make_trainer('cuda')
+    state.load_tree(init_tree)
+    with tempfile.TemporaryDirectory() as tmp:
+        for b in batches[:3]:
+            state, _ = trainer.train_step(state, b, *args(state))
+        save_checkpoint(tmp, state.to_tree(), state.step - 1)
+        trainer, state, args = make_trainer('cuda')
+        tree, last = load_checkpoint(tmp)
+        state.load_tree(tree)
+    for b in batches[last + 1:]:
+        state, _ = trainer.train_step(state, b, *args(state))
+    if not bit_equal(state.to_tree(), unbroken):
+        raise AssertionError('the run resumed after step 2 differs from the '
+                             'unbroken run')
+    return {'nan_state_bit_identical': True, 'resume_bit_identical': True,
+            'resumed_after_step': last}
+
+
+def ct_rec_batch(cfg, sean_cfg, gen, n):
+    """The rec_img fields of a batch: SEAN codes, blocky label maps that
+    hold hair, images in [-1,1] (seeded, on the card)."""
+    from ctrlhair_tpu_torch.constants import HAIR_IDX
+    s = sean_cfg.crop_size
+    coarse = torch.randint(0, sean_cfg.semantic_nc, (n, 16, 16),
+                           generator=gen, device='cuda')
+    coarse[:, 2:8, 3:13] = HAIR_IDX
+    label = coarse.repeat_interleave(s // 16, 1).repeat_interleave(s // 16,
+                                                                   2)
+    return {'sean_code': torch.randn((n, sean_cfg.semantic_nc,
+                                      sean_cfg.style_dim), generator=gen,
+                                     device='cuda'),
+            'label': label,
+            'image': torch.rand((n, s, s, 3), generator=gen,
+                                device='cuda') * 2 - 1}
+
+
+def phase_train_ct(smi: str):
+    """(a) The colour/texture trainer at ColorTextureConfig() with a frozen
+    seeded SEAN at SEANConfig() and lambda_rec_img on from step 0."""
+    import dataclasses
+    from ctrlhair_tpu_torch.config import ColorTextureConfig, SEANConfig
+    from ctrlhair_tpu_torch.models.layers import init_parameters_
+    from ctrlhair_tpu_torch.models.sean import SEAN
+    from ctrlhair_tpu_torch.training.color_texture_trainer import (
+        ColorTextureTrainer, synthetic_batch)
+    cfg = dataclasses.replace(ColorTextureConfig(),
+                              lambda_rec_img={0: 1000.0})
+    scfg = SEANConfig()
+    seans = {}
+
+    def sean_on(device):
+        """The frozen SEAN, seeded on the card, the same weights on the
+        CPU."""
+        if device not in seans:
+            with torch.device(device):
+                seans[device] = SEAN(scfg)
+            if device == 'cuda':
+                init_parameters_(seans[device],
+                                 torch.Generator(device).manual_seed(SEED))
+            else:
+                seans[device].load_state_dict(seans['cuda'].state_dict())
+        return seans[device]
+
+    predictor_trees = {}
+
+    def make_trainer(device, rec_img=True):
+        trainer = ColorTextureTrainer(
+            cfg, sean=sean_on(device) if rec_img else None,
+            rec_img_subset=4, device=device, seed=SEED)
+        state, preds = trainer.init_state(SEED)
+        for k, p in preds.items():     # the card's predictors everywhere
+            if k in predictor_trees:
+                p.load_state_dict(predictor_trees[k])
+            else:
+                predictor_trees[k] = {n: t.cpu() for n, t in
+                                      p.state_dict().items()}
+        return trainer, state, lambda st: (preds,)
+
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    rec = ct_rec_batch(cfg, scfg, gen, CT_BATCH)
+    batches = [dict(synthetic_batch(torch.Generator().manual_seed(100 + i),
+                                    cfg, CT_BATCH, 'cuda'), **rec)
+               for i in range(TRAIN_STEPS)]
+    trainer, state, args = make_trainer('cuda')
+    init_tree = state.to_tree()
+    n_params = sum(p.numel() for m in state.parts().values()
+                   for p in m.module.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, ms_on = train_steps(
+        lambda s, b: trainer.train_step(s, b, *args(s)), state, batches)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(metrics['finite']) or 'g/lambda_rec_img' not in metrics:
+        raise AssertionError(f'colour/texture step: {metrics}')
+    # the same steps with lambda_rec_img off (no SEAN fields in the batch)
+    off_batches = [{k: v for k, v in b.items() if k not in rec}
+                   for b in batches]
+    trainer_off, state_off, args_off = make_trainer('cuda', rec_img=False)
+    state_off.load_tree(init_tree)
+    state_off, m_off, ms_off = train_steps(
+        lambda s, b: trainer_off.train_step(s, b, *args_off(s)), state_off,
+        off_batches)
+    if 'g/lambda_rec_img' in m_off or not bool(m_off['finite']):
+        raise AssertionError('colour/texture step without SEAN fields')
+    # the SEAN decode's forward + backward, alone, on the subset, with
+    # cuDNN's defaults and with deterministic algorithms (the checks')
+    ae_code = torch.randn((CT_BATCH, cfg.style_dim), device='cuda',
+                          requires_grad=True)
+    sean_fn = lambda: torch.autograd.grad(
+        trainer._rec_img_hair_mse(ae_code, batches[0]), ae_code)
+    sean_ms = wall_ms(sean_fn, 5)
+    sean_ms_det = deterministic(wall_ms)(sean_fn, 5)
+    sean_ms_tuned = autotuned(wall_ms)(sean_fn, 5)
+    prof_on = profile_step(lambda: trainer.train_step(
+        state, batches[0], *args(state)), float(np.median(ms_on[1:])))
+    prof_off = profile_step(lambda: trainer_off.train_step(
+        state_off, off_batches[0], *args_off(state_off)),
+        float(np.median(ms_off[1:])))
+    log(f'[train] colour/texture ColorTextureConfig() ({n_params} trained '
+        f'parameters), batch {CT_BATCH}, frozen SEANConfig() (ngf '
+        f'{scfg.ngf}, style {scfg.style_dim}, {scfg.crop_size} px), '
+        f'lambda_rec_img on, rec_img_subset 4: {TRAIN_STEPS} steps '
+        f'{", ".join(f"{t:.3f}" for t in ms_on)} ms; losses d '
+        f'{float(metrics["d_total"]):.4f} g {float(metrics["g_total"]):.4f} '
+        f'rec_img {float(metrics["g/lambda_rec_img"]):.5f} ({smi})')
+    # steady state: the median of steps 2..5 (step 1 builds cuBLAS/cuDNN
+    # plans)
+    on = float(np.median(ms_on[1:]))
+    off = float(np.median(ms_off[1:]))
+    log(f'[time] train colour/texture, lambda_rec_img on: {on:.3f} ms a '
+        f'step, {1e3 / on:.2f} steps/s; off: {off:.3f} ms a step, '
+        f'{1e3 / off:.2f} steps/s; SEAN decode forward+backward of 4 '
+        f'images {sean_ms:.3f} ms, {100 * sean_ms / on:.1f}% of a step '
+        f'({sean_ms_det:.3f} ms with deterministic cuDNN, '
+        f'{sean_ms_tuned:.3f} ms with cudnn.benchmark, which no path sets); '
+        f'peak device memory {peak} B ({smi})')
+    for name, prof in (('on', prof_on), ('off', prof_off)):
+        log(f'[profile] train colour/texture step, lambda_rec_img {name}: '
+            f'{prof["device_ms"]:.3f} ms of kernels in {prof["launches"]} '
+            f'launches, card idle {100 * prof["idle_share"]:.1f}% of a '
+            f'{prof["step_ms"]:.3f} ms step; top: '
+            + ', '.join(f'{n} {ms:.3f} ms' for n, ms in prof['top'])
+            + f' ({smi})')
+    # checks: card against CPU, NaN, resume
+    draws = trainer.draws(0, CT_BATCH)
+    cpu_check = deterministic(card_against_cpu)(
+        make_trainer, init_tree, {k: v.cpu() for k, v in batches[0].items()},
+        {k: v.cpu() for k, v in draws.items()},
+        {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_g})
+    nan_batch = {k: v.clone() for k, v in batches[0].items()}
+    nan_batch['code'][3, 7] = float('nan')
+    checks = deterministic(nan_and_resume)(make_trainer, init_tree, batches,
+                                           nan_batch)
+    log(f'[train] colour/texture checks: card against CPU {cpu_check} (bar '
+        f'{TRAIN_CARD_BAR}); {checks}')
+    return {'config': 'ColorTextureConfig(), lambda_rec_img={0: 1000.0}',
+            'sean': 'SEANConfig()', 'batch': CT_BATCH,
+            'trained_parameters': n_params, 'step_ms_rec_img_on': ms_on,
+            'step_ms_rec_img_off': ms_off, 'median_ms_on': on,
+            'median_ms_off': off, 'steps_per_s_on': 1e3 / on,
+            'steps_per_s_off': 1e3 / off, 'sean_fwd_bwd_ms': sean_ms,
+            'sean_share': sean_ms / on, 'sean_fwd_bwd_ms_deterministic':
+            sean_ms_det, 'sean_fwd_bwd_ms_cudnn_benchmark': sean_ms_tuned,
+            'profile_on': prof_on, 'profile_off': prof_off,
+            'peak_bytes': peak,
+            'card_vs_cpu': cpu_check, **checks}
+
+
+def phase_train_predictors(smi: str):
+    """(b) Both predictor trainers at their configs, batch 256."""
+    from ctrlhair_tpu_torch.config import (curliness_predictor_config,
+                                           rgb_predictor_config)
+    from ctrlhair_tpu_torch.training.predictor_trainer import (
+        PredictorTrainer)
+    out = {}
+    for which, cfg in (('rgb', rgb_predictor_config()),
+                       ('curliness', curliness_predictor_config())):
+        def make_trainer(device, cfg=cfg):
+            trainer = PredictorTrainer(cfg, device=device, seed=SEED)
+            return trainer, trainer.init_state(SEED), lambda st: ()
+
+        batches = []
+        for i in range(TRAIN_STEPS):
+            g = torch.Generator().manual_seed(200 + i)
+            code = torch.randn((PREDICTOR_BATCH, cfg.style_dim),
+                               generator=g)
+            b = {'code': code}
+            if which == 'curliness':
+                b['curliness_label'] = torch.where(
+                    code[:, :1] + code[:, 1:2] > 0, 1.0, -1.0)
+            else:
+                b['rgb_mean'] = code[:, :3] * 40 + 128
+                b['pca_std'] = code[:, 3:4].abs() * 30 + 20
+            batches.append(to_device(b, 'cuda'))
+        trainer, state, _ = make_trainer('cuda')
+        init_tree = state.to_tree()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics, ms = train_steps(trainer.train_step, state, batches)
+        peak = torch.cuda.max_memory_allocated()
+        if not bool(metrics['finite']):
+            raise AssertionError(f'{which} predictor step: {metrics}')
+        med = float(np.median(ms[1:]))
+        prof = profile_step(lambda: trainer.train_step(state, batches[0]),
+                            med)
+        ev = trainer.eval_metrics(state, batches[0])
+        log(f'[time] train {which} predictor ({cfg.name}, hidden '
+            f'{cfg.hidden_dim}x{cfg.hidden_layer_num}, dropout '
+            f'{cfg.dropout}), batch {PREDICTOR_BATCH}: {TRAIN_STEPS} steps '
+            f'{", ".join(f"{t:.3f}" for t in ms)} ms; {med:.3f} ms a step, '
+            f'{1e3 / med:.2f} steps/s; total {float(metrics["total"]):.4f}; '
+            f'eval {sorted((k, round(float(v), 4)) for k, v in ev.items())}; '
+            f'peak device memory {peak} B; a step: {prof["device_ms"]:.3f} '
+            f'ms of kernels in {prof["launches"]} launches, card idle '
+            f'{100 * prof["idle_share"]:.1f}% ({smi})')
+        draws = trainer.draws(0, PREDICTOR_BATCH)
+        cpu_check = deterministic(card_against_cpu)(
+            make_trainer, init_tree,
+            {k: v.cpu() for k, v in batches[0].items()},
+            {'dropout': [m.cpu() for m in draws['dropout']]},
+            {'model': cfg.lr})
+        nan_batch = {k: v.clone() for k, v in batches[0].items()}
+        nan_batch['code'][5, 9] = float('nan')
+        checks = deterministic(nan_and_resume)(make_trainer, init_tree, batches,
+                                           nan_batch)
+        log(f'[train] {which} predictor checks: card against CPU '
+            f'{cpu_check} (bar {TRAIN_CARD_BAR}); {checks}')
+        out[which] = {'config': cfg.name, 'batch': PREDICTOR_BATCH,
+                      'step_ms': ms, 'median_ms': med,
+                      'steps_per_s': 1e3 / med, 'peak_bytes': peak,
+                      'profile': prof,
+                      'card_vs_cpu': cpu_check, **checks}
+    return out
+
+
+def phase_train_script(smi: str):
+    """(c) run_color_texture.main in this process on the card, then the
+    port's reader on the checkpoint it wrote."""
+    import tempfile
+    from ctrlhair_tpu_torch.training import run_color_texture
+    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        state = run_color_texture.main(['--synthetic', '--steps', '3',
+                                        '--out-dir', tmp])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        tree, step = load_checkpoint(os.path.join(tmp, 'checkpoints'))
+    if step != 2 or int(tree['step']) != 3 or state.step != 3 or \
+            set(tree) != {'step', 'gen', 'dis', 'dis_noise'}:
+        raise AssertionError(f'run_color_texture wrote step {step}, keys '
+                             f'{sorted(tree)}')
+    if not bit_equal(tree, state.to_tree()):
+        raise AssertionError('run_color_texture\'s checkpoint does not read '
+                             'back as its final state')
+    if next(state.gen.module.parameters()).device.type != 'cuda':
+        raise AssertionError('run_color_texture did not train on the card')
+    log(f'[train] run_color_texture.main([--synthetic, --steps 3]) on '
+        f'{next(state.gen.module.parameters()).device}: {wall:.1f} ms wall '
+        f'with its set-up; checkpoint 0000002.ckpt read back equal ({smi})')
+    return {'wall_ms': wall, 'checkpoint_step': step}
+
+
+def phase_training(smi: str):
+    """The training slice: (a) colour/texture, (b) predictors, (c) the
+    entry point.  Timed with cuDNN's defaults, as the entry points run;
+    the checks run with deterministic cuDNN algorithms (deterministic)."""
+    reset_launches()
+    rec = {'color_texture': phase_train_ct(smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec['predictors'] = phase_train_predictors(smi)
+    rec['run_color_texture'] = phase_train_script(smi)
+    return read_launches('training', 0, 0), rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1595,6 +2093,12 @@ def main() -> int:
     # 8. the serving surface: web server, curation, demo, multigrid
     s_launches, serving = phase_serving(mg_case, stage_ms['output.blend'],
                                         smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the training slice: no kernel of it is hand-written; both counts
+    # are set to 0 before it and must read 0 after it
+    t_launches, training = phase_training(smi)
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
     raster_entry['case']['ptxas'] = ptxas['raster_uv']
@@ -1607,7 +2111,8 @@ def main() -> int:
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
                              'deployment': d_launches['masked_cg'],
-                             **s_launches['masked_cg']},
+                             **s_launches['masked_cg'],
+                             'training': t_launches['masked_cg']},
         **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
@@ -1618,7 +2123,8 @@ def main() -> int:
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
                              'deployment': d_launches['raster_uv'],
-                             **s_launches['raster_uv']},
+                             **s_launches['raster_uv'],
+                             'training': t_launches['raster_uv']},
         **raster_entry,
     }]
     if set(kernels[0]) != set(kernels[1]):
@@ -1634,6 +2140,7 @@ def main() -> int:
         'session_check': session_check, 'reference': reference,
         'backend_check': {**warp_check, **routes_check},
         'deployment': deployment, 'serving': serving,
+        'training': training,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -16,14 +16,18 @@
 # Input is the JAX editor's parameter tree as nested dicts of numpy arrays
 # (the caller does any device-to-host copy, or convert/load.py decodes a
 # checkpoint).  An unknown leaf raises here; a missing one raises when the
-# state dict is loaded (strict=True).
+# state dict is loaded (strict=True).  to_flax is the inverse for one
+# module: its tensors (or tensors laid out like its parameters, such as
+# Adam's moments) -> flax variables of numpy arrays, so that the trainers
+# write checkpoints the JAX package restores.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 # flax module paths (family first, collection dropped) of ConvTranspose
 # layers; every other 4-d kernel is a Conv
@@ -88,3 +92,56 @@ def from_flax(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 key = '.'.join(path + (name,))
                 state[key] = _tensor(value)
     return state
+
+
+def load_variables(module: nn.Module, family: str,
+                   variables: Mapping[str, Any]) -> None:
+    """Load one module from its flax variables ({'params'[,
+    'batch_stats']}) with load_state_dict(strict=True).  `family` is the
+    module's editor family name, which from_flax's layout rules key on
+    ('sean' for a SEAN)."""
+    prefix = family + '.'
+    state = from_flax({family: variables})
+    module.load_state_dict({k[len(prefix):]: v for k, v in state.items()},
+                           strict=True)
+
+
+def to_flax(module: nn.Module, family: str,
+            values: Optional[Mapping[str, torch.Tensor]] = None
+            ) -> Dict[str, Any]:
+    """The inverse of from_flax for one module: `values` (default: its
+    state dict; keys as in named_parameters / named_buffers, a subset
+    allowed) -> {'params': ..., 'batch_stats': ...} of float32 numpy
+    arrays, the second only when a running statistic is among them."""
+    if values is None:
+        values = module.state_dict()
+    owners = dict(module.named_modules())
+    out: Dict[str, Any] = {}
+    for key, tensor in values.items():
+        mod_path, _, leaf = key.rpartition('.')
+        owner = owners[mod_path]
+        value = tensor.detach().float().cpu().numpy()
+        path = tuple(mod_path.split('.')) if mod_path else ()
+        if leaf in ('running_mean', 'running_var'):
+            collection, name = 'batch_stats', leaf[len('running_'):]
+        else:
+            collection, name = 'params', leaf
+            if leaf == 'weight' and isinstance(owner, nn.ConvTranspose2d):
+                if (family,) + path not in CONV_TRANSPOSE_PATHS:
+                    raise ValueError(f'{family}.{key}: a ConvTranspose '
+                                     'from_flax would not invert')
+                name, value = 'kernel', value.transpose(2, 3, 0, 1)[::-1,
+                                                                    ::-1]
+            elif leaf == 'weight' and isinstance(owner, nn.Conv2d):
+                name, value = 'kernel', value.transpose(2, 3, 1, 0)
+            elif leaf == 'weight' and isinstance(owner, nn.Linear):
+                name, value = 'kernel', value.T
+            elif leaf == 'weight':               # BatchNorm, LayerNorm
+                name = 'scale'
+            elif leaf not in _KEEP:
+                raise KeyError(f'unknown parameter {family}.{key}')
+        node = out.setdefault(collection, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.array(value, copy=True)   # not a view of live data
+    return out

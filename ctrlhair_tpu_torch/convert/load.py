@@ -1,7 +1,9 @@
-# Load the checkpoints the JAX package's trainers write into a HairEditor.
+# Load the checkpoints the JAX package's trainers write, and the
+# reference's PyTorch checkpoints, into a HairEditor.
 #
 # Port of ctrlhair_tpu/convert/load.py (load_native_params,
-# load_trained_root): each family's checkpoint directory holds the
+# load_trained_root, load_reference_params; the last one at the end of this
+# file): each family's checkpoint directory holds the
 # manifest and `%07d.ckpt` files of utils/checkpoint.py.  Two contracts
 # exist, told apart by the keys of the decoded tree:
 #   * deployment trees, as scripts/train_soak.py ships them: colour/texture
@@ -26,7 +28,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Mapping, Optional
 
-from ctrlhair_tpu_torch.convert import from_flax
+from ctrlhair_tpu_torch.convert import load_variables
 from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
 
 _VARIABLES = {'params', 'batch_stats'}
@@ -90,12 +92,8 @@ def pick_variables(family: str, tree) -> Dict[str, Any]:
 
 def _load_family(editor, family: str, variables: Mapping) -> None:
     """from_flax's layout rules into editor.<family>, strictly."""
-    prefix = family + '.'
-    module = getattr(editor, family)
     try:
-        state = from_flax({family: variables})
-        module.load_state_dict({k[len(prefix):]: v for k, v in state.items()},
-                               strict=True)
+        load_variables(getattr(editor, family), family, variables)
     except (KeyError, RuntimeError) as e:
         raise ValueError(f'{family}: the checkpoint does not fit the '
                          f'editor: {e}') from e
@@ -157,3 +155,80 @@ def family_dirs(root: str) -> Dict[str, Optional[str]]:
 def load_trained_root(editor, root: str) -> Dict[str, int]:
     """Load every family checkpoint found under `root` into the editor."""
     return load_native_params(editor, **family_dirs(root))
+
+
+# ------------------------------------------------ reference checkpoints
+def torch_load(path: str):
+    """A reference PyTorch checkpoint, on the CPU.  Full pickles, as the
+    reference saves some of them (a whole SEAN netG module): read only
+    checkpoints you trust."""
+    import torch
+    return torch.load(path, map_location='cpu', weights_only=False)
+
+
+def load_reference_params(editor, *,
+                          sean_path: Optional[str] = None,
+                          bisenet_path: Optional[str] = None,
+                          color_texture_ckpt: Optional[str] = None,
+                          shape_ckpt: Optional[str] = None,
+                          rgb_predictor_ckpt: Optional[str] = None,
+                          curliness_predictor_ckpt: Optional[str] = None,
+                          style_fallback_dir: Optional[str] = None
+                          ) -> Dict[str, str]:
+    """Load whichever reference PyTorch checkpoints exist into the editor's
+    families, as the JAX package's load_reference_params does: each state
+    dict goes through convert.torch_import (the reference layout -> flax
+    layout, 'module.' prefixes stripped) and then from_flax's rules into
+    the family, strictly.  Branch checkpoints are the reference's
+    {'Model_G', 'Model_D', ...} / {'Predictor'} dicts.  An absent path
+    leaves the family as it is.  Returns {family: path} of what loaded."""
+    from ctrlhair_tpu_torch.convert import torch_import as ti
+
+    cfg = editor.cfg
+    loaded: Dict[str, str] = {}
+
+    def exists(path):
+        return bool(path) and os.path.exists(path)
+
+    def put(family, variables, path):
+        _load_family(editor, family, variables)
+        loaded[family] = path
+
+    if exists(sean_path):
+        sd = torch_load(sean_path)
+        if hasattr(sd, 'state_dict'):
+            sd = sd.state_dict()
+        put('sean', ti.convert_sean(
+            ti.strip_ddp_prefix(sd), ngf=cfg.sean.ngf,
+            semantic_nc=cfg.sean.semantic_nc,
+            style_dim=cfg.sean.style_dim), sean_path)
+    if exists(bisenet_path):
+        put('bisenet', ti.convert_bisenet(
+            ti.strip_ddp_prefix(torch_load(bisenet_path))), bisenet_path)
+    if exists(color_texture_ckpt):
+        ckpt = torch_load(color_texture_ckpt)
+        put('ct_gen', ti.convert_ct_generator(
+            ti.strip_ddp_prefix(ckpt['Model_G']),
+            cfg.color_texture.g_hidden_layer_num), color_texture_ckpt)
+        put('ct_dis', ti.convert_ct_discriminator(
+            ti.strip_ddp_prefix(ckpt['Model_D']),
+            cfg.color_texture.d_hidden_layer_num), color_texture_ckpt)
+    if exists(shape_ckpt):
+        ckpt = torch_load(shape_ckpt)
+        put('shape', ti.convert_shape_generator(
+            ti.strip_ddp_prefix(ckpt['Model_G']), cfg.shape.layer_num,
+            img_size=cfg.shape.img_size,
+            hidden_in_channel=cfg.shape.hidden_in_channel,
+            max_channel=cfg.shape.max_channel), shape_ckpt)
+    for family, path, pcfg in (
+            ('rgb_pred', rgb_predictor_ckpt, cfg.rgb_predictor),
+            ('curliness_pred', curliness_predictor_ckpt,
+             cfg.curliness_predictor)):
+        if exists(path):
+            ckpt = torch_load(path)
+            sd = ti.strip_ddp_prefix(ckpt.get('Predictor', ckpt))
+            put(family, ti.convert_predictor(sd, pcfg.hidden_layer_num,
+                                             pcfg.norm), path)
+    if style_fallback_dir and os.path.isdir(style_fallback_dir):
+        editor.load_style_fallback(style_fallback_dir)
+    return loaded

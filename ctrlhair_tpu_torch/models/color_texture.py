@@ -1,11 +1,13 @@
 # Colour & texture branch: EigenGAN generator, the encoder-discriminator
-# used as the texture/curliness encoder, and the frozen predictors.
+# used as the texture/curliness encoder, the latent-prior discriminator and
+# the predictors.
 #
-# Port of ctrlhair_tpu/models/color_texture.py (inference; the latent-prior
-# discriminator CTDiscriminatorNoise is training-only and not ported).  All
-# are small MLPs over the 512-d SEAN hair code and run in float32, as the
-# editor builds them.  flax infers each first layer's width from its input;
-# here the SEAN code width is passed as `code_dim`.
+# Port of ctrlhair_tpu/models/color_texture.py.  All are small MLPs over the
+# 512-d SEAN hair code and run in float32, as the editor and the trainers
+# build them.  `train=True` is flax's train mode (BatchNorm on the batch's
+# statistics, dropout in the predictors; models/layers.py).  flax infers
+# each first layer's width from its input; here the SEAN code width is
+# passed as `code_dim`.
 
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ class SubspaceLayer(nn.Module):
         cd = self.dtype
         return (self.L.to(cd) * z) @ self.U.to(cd) + self.mu.to(cd)
 
+    @staticmethod
+    def orthogonal_regularizer(u: torch.Tensor) -> torch.Tensor:
+        """mean((U U^T - I)^2)."""
+        eye = torch.eye(u.shape[0], dtype=u.dtype, device=u.device)
+        return torch.mean((u @ u.T - eye) ** 2)
+
 
 class EigenGenerator(nn.Module):
     """Condition MLP with per-layer subspace noise injection."""
@@ -70,6 +78,12 @@ class EigenGenerator(nn.Module):
             x = x + getattr(self, f'subspace_{i}')(noise[:, i, :])
             x = getattr(self, f'main_mid_{i}')(F.leaky_relu(x, 0.2))
         return {'code': x}
+
+    def orthogonal_loss(self) -> torch.Tensor:
+        """Sum of the subspace layers' orthogonal regularisers."""
+        return sum(SubspaceLayer.orthogonal_regularizer(
+            getattr(self, f'subspace_{i}').U)
+            for i in range(self.cfg.g_hidden_layer_num))
 
 
 def _conds(cfg: ColorTextureConfig, data) -> list:
@@ -115,13 +129,14 @@ class CTDiscriminator(nn.Module):
 
     def __init__(self, cfg: ColorTextureConfig,
                  code_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.net = MLP(code_dim or cfg.style_dim, cfg.d_hidden_dim,
                        cfg.d_hidden_layer_num, self._out_dim(),
-                       norm=cfg.d_norm, activation=cfg.d_activ, dtype=dtype)
+                       norm=cfg.d_norm, activation=cfg.d_activ, dtype=dtype,
+                       train=train)
 
     def _out_dim(self) -> int:
         # The reference's head-width formula, quirks included: the rgb +3
@@ -161,21 +176,46 @@ class CTDiscriminator(nn.Module):
         return res
 
 
+class CTDiscriminatorNoise(nn.Module):
+    """Latent-prior discriminator on (noise, curliness)."""
+
+    def __init__(self, cfg: ColorTextureConfig,
+                 dtype: torch.dtype = torch.float32, train: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        cin = cfg.noise_dim + (cfg.curliness_dim if cfg.use_curliness else 0)
+        self.net = MLP(cin, cfg.d_hidden_dim, cfg.d_noise_hidden_layer_num,
+                       1, norm=cfg.d_norm, activation=cfg.d_activ,
+                       dtype=dtype, train=train)
+
+    def forward(self, data):
+        x = data['noise']
+        if self.cfg.use_curliness:
+            x = torch.cat([x, data['noise_curliness']], dim=-1)
+        return {'adv': self.net(x.to(self.dtype))[:, :1]}
+
+
 class Predictor(nn.Module):
-    """Frozen supervised readout of curliness / colour statistics."""
+    """Supervised readout of curliness / colour statistics (frozen behind
+    the editor and the colour/texture trainer; trained by
+    training/predictor_trainer.py with dropout in train mode)."""
 
     def __init__(self, cfg: PredictorConfig,
                  code_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.net = MLP(code_dim or cfg.style_dim, cfg.hidden_dim,
                        cfg.hidden_layer_num, sum(cfg.predict_dict.values()),
-                       norm=cfg.norm, activation=cfg.activ, dtype=dtype)
+                       norm=cfg.norm, activation=cfg.activ, dtype=dtype,
+                       dropout=cfg.dropout, train=train)
 
-    def forward(self, data):
-        out = self.net(data['code'].to(self.dtype))
+    def forward(self, data, keep_masks: Optional[list] = None):
+        """`keep_masks`: the dropout keep masks of a train-mode pass (see
+        layers.MLP)."""
+        out = self.net(data['code'].to(self.dtype), keep_masks)
         res, ptr = {}, 0
         for key, dim in self.cfg.predict_dict.items():
             res[key] = out[:, ptr:ptr + dim]

@@ -7,8 +7,11 @@
 # biases are cast to it at each layer, as flax does, while parameters stay
 # float32.  The normalisations compute their statistics in float32.
 #
-# Inference only: BatchNorm uses running statistics; dropout and spectral
-# normalisation (training) are not ported.
+# Train mode, as flax's `train=True`, is a constructor flag (`train_mode`;
+# `set_train` flips it): BatchNorm then normalises with the batch's
+# statistics and updates its running ones by flax's rule, and LinearBlock
+# applies dropout.  torch's own training flag is left alone, so eval() and
+# train() change nothing here.  Spectral normalisation is not ported yet.
 
 from __future__ import annotations
 
@@ -218,14 +221,22 @@ class SampleLayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class RunningBatchNorm(nn.Module):
-    """flax nn.BatchNorm at inference (running statistics), channel dim 1.
+BN_MOMENTUM = 0.9        # flax's momentum; torch's momentum 0.1
 
-    Normalises in float32 and returns the compute dtype, as flax does.
+
+class RunningBatchNorm(nn.Module):
+    """flax nn.BatchNorm, channel dim 1.
+
+    At inference (`train=False`) it normalises with the running statistics.
+    In train mode it normalises with the batch's mean and biased variance
+    (E[x^2] - E[x]^2, floored at 0, as flax's fast variance) and updates
+    the running ones in place as flax does, running = 0.9 * running +
+    0.1 * batch, the variance biased too (F.batch_norm would take the
+    unbiased one).  Normalises in float32 and returns the compute dtype.
     `affine=False` is the parameter-free norm of ACE."""
 
     def __init__(self, features: int, affine: bool = True, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, train: bool = False):
         super().__init__()
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
@@ -236,6 +247,7 @@ class RunningBatchNorm(nn.Module):
             self.weight = self.bias = None
         self.eps = eps
         self.dtype = dtype
+        self.train_mode = train
 
     def reset_parameters(self, gen: torch.Generator):
         with torch.no_grad():
@@ -247,10 +259,23 @@ class RunningBatchNorm(nn.Module):
 
     def forward(self, x):
         shape = _channel_shape(x)
-        mul = torch.rsqrt(self.running_var + self.eps)
+        x32 = x.float()
+        if self.train_mode:
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = x32.mean(dim=dims)
+            var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean,
+                                  0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        y = (x32 - mean.view(shape)) * mul.view(shape)
         if self.bias is not None:
             y = y + self.bias.view(shape)
         return y.to(self.dtype)
@@ -260,9 +285,9 @@ class BatchNorm(nn.Module):
     """layers.BatchNorm counterpart: a RunningBatchNorm named 'bn'."""
 
     def __init__(self, features: int, affine: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, train: bool = False):
         super().__init__()
-        self.bn = RunningBatchNorm(features, affine, dtype=dtype)
+        self.bn = RunningBatchNorm(features, affine, dtype=dtype, train=train)
 
     def forward(self, x):
         return self.bn(x)
@@ -290,7 +315,8 @@ class LayerNorm(nn.Module):
 
 
 def make_norm(norm: str, features: int, *,
-              dtype: torch.dtype = torch.float32, linear: bool = False):
+              dtype: torch.dtype = torch.float32, linear: bool = False,
+              train: bool = False):
     """Map the reference's norm strings to modules (or None).  'ln' is
     torch's LayerNorm in a LinearBlock and SampleLayerNorm in a ConvBlock,
     as in the JAX twin."""
@@ -303,27 +329,46 @@ def make_norm(norm: str, features: int, *,
             return LayerNorm(features, dtype=dtype)
         return SampleLayerNorm(features, dtype=dtype)
     if norm == 'bn':
-        return BatchNorm(features, affine=True, dtype=dtype)
+        return BatchNorm(features, affine=True, dtype=dtype, train=train)
     raise ValueError(f'unsupported norm: {norm}')
 
 
+def dropout(x: torch.Tensor, rate: float, keep: torch.Tensor) -> torch.Tensor:
+    """flax nn.Dropout: kept units divided by the keep probability, the
+    others zero; `keep` is the boolean keep mask of x's shape."""
+    keep_prob = 1.0 - rate
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class LinearBlock(nn.Module):
-    """fc -> norm -> activation (dropout is training-only)."""
+    """fc -> norm -> activation -> dropout (train mode only)."""
 
     def __init__(self, cin: int, features: int, norm: str = 'none',
                  activation: str = 'relu', use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 train: bool = False):
         super().__init__()
         self.fc = Dense(cin, features, bias=use_bias, dtype=dtype,
                         init='torch_uniform')
-        self.norm = make_norm(norm, features, dtype=dtype, linear=True)
+        self.norm = make_norm(norm, features, dtype=dtype, linear=True,
+                              train=train)
         self.activation = activation
+        self.dropout = dropout
+        self.train_mode = train
 
-    def forward(self, x):
+    def forward(self, x, keep: Optional[torch.Tensor] = None):
+        """`keep`: the dropout keep mask, needed in train mode when the
+        block drops units."""
         x = self.fc(x)
         if self.norm is not None:
             x = self.norm(x)
-        return ACTIVATIONS[self.activation](x)
+        x = ACTIVATIONS[self.activation](x)
+        if self.dropout > 0 and self.train_mode:
+            if keep is None:
+                raise ValueError('LinearBlock: train mode with dropout needs '
+                                 'a keep mask')
+            x = dropout(x, self.dropout, keep)
+        return x
 
 
 class ConvBlock(nn.Module):
@@ -348,24 +393,63 @@ class ConvBlock(nn.Module):
 
 
 class MLP(nn.Module):
-    """Stack of LinearBlocks + a bare linear head."""
+    """Stack of LinearBlocks + a bare linear head.  In train mode with
+    dropout, each hidden layer drops units by a keep mask: the caller's
+    (`keep_masks`, one [N, hidden_dim] bool tensor a hidden layer) or,
+    given none, one drawn from `self.generator` (a torch.Generator on the
+    input's device; seed 0 unless the caller sets another)."""
 
     def __init__(self, cin: int, hidden_dim: int, hidden_layers: int,
                  out_dim: int, norm: str = 'none', activation: str = 'lrelu',
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 train: bool = False):
         super().__init__()
         dims = [cin] + [hidden_dim] * hidden_layers
         for i in range(hidden_layers):
             self.add_module(f'layer_{i}', LinearBlock(
-                dims[i], hidden_dim, norm, activation, dtype=dtype))
+                dims[i], hidden_dim, norm, activation, dtype=dtype,
+                dropout=dropout, train=train))
         self.hidden_layers = hidden_layers
+        self.hidden_dim = hidden_dim
+        self.dropout = dropout
         self.head = LinearBlock(dims[-1], out_dim, 'none', 'none',
                                 dtype=dtype)
+        self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x):
+    def drops(self) -> bool:
+        """Whether a forward pass now needs keep masks."""
+        return self.dropout > 0 and self.layer_0.train_mode \
+            if self.hidden_layers else False
+
+    def forward(self, x, keep_masks: Optional[list] = None):
+        if self.drops() and keep_masks is None:
+            if self.generator is None or \
+                    self.generator.device != x.device:
+                self.generator = torch.Generator(x.device).manual_seed(0)
+            keep_masks = [m.to(x.device) for m in keep_masks_like(
+                x.shape[0], self.hidden_dim, self.hidden_layers,
+                self.dropout, self.generator)]
         for i in range(self.hidden_layers):
-            x = getattr(self, f'layer_{i}')(x)
+            keep = keep_masks[i] if keep_masks is not None else None
+            x = getattr(self, f'layer_{i}')(x, keep)
         return self.head(x)
+
+
+def keep_masks_like(n: int, width: int, layers: int, rate: float,
+                    generator: torch.Generator) -> list:
+    """`layers` dropout keep masks [n, width], Bernoulli(1 - rate), drawn
+    from `generator` on its device."""
+    return [torch.rand((n, width), generator=generator,
+                       device=generator.device) < 1.0 - rate
+            for _ in range(layers)]
+
+
+def set_train(module: nn.Module, train: bool) -> None:
+    """Set the train mode of every layer under `module` that has one (as
+    building the flax module with `train=` does)."""
+    for m in module.modules():
+        if hasattr(m, 'train_mode'):
+            m.train_mode = train
 
 
 def init_parameters_(module: nn.Module, gen: torch.Generator) -> None:

@@ -1,8 +1,10 @@
-# Reader of flax's msgpack checkpoints (pure Python + numpy).
+# Reader and writer of flax's msgpack checkpoints (pure Python + numpy).
 #
-# The read half of flax.serialization.msgpack_restore, so that the port can
-# load the checkpoints the JAX package writes (utils/checkpoint.py) without
-# flax or the msgpack package.  The format:
+# flax.serialization.msgpack_restore and msgpack_serialize, so that the port
+# reads the checkpoints the JAX package writes (utils/checkpoint.py) and
+# writes ones the JAX package reads, without flax or the msgpack package.
+# pack() gives the bytes msgpack_serialize gives for the same tree.  The
+# format:
 #   * msgpack (https://github.com/msgpack/msgpack/blob/master/spec.md):
 #     maps, arrays, str, bin, nil, bool, ints of every width, float32/64;
 #     lengths and numbers big-endian;
@@ -17,7 +19,8 @@
 # (read-only, no copy), so decoding costs a walk over the keys, not over the
 # values.  bfloat16, which numpy lacks, is widened to float32 by shifting its
 # 16 bits into the high half of a 32-bit word, which is exact.  Input that is
-# not such a stream raises ValueError.
+# not such a stream raises ValueError.  The writer packs each value in the
+# shortest msgpack form, as the msgpack package does, floats as float64.
 
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED = '__msgpack_chunked_array__'
+MAX_CHUNK_SIZE = 2 ** 30             # bytes; flax chunks larger arrays
 
 _FIXED = {                       # code -> (struct format, size)
     0xca: ('>f', 4), 0xcb: ('>d', 8),
@@ -200,3 +204,134 @@ def read(path: str) -> Any:
     """restore() of a checkpoint file."""
     with open(path, 'rb') as f:
         return restore(f.read())
+
+
+# ------------------------------------------------------------------ writer
+def _header(out: list, n: int, fix: int, fix_max: int, codes) -> None:
+    """A length-prefixed type: fix form when n <= fix_max, else the 8/16/32
+    bit forms `codes` (None where the type has none)."""
+    if n <= fix_max:
+        out.append(struct.pack('>B', fix | n))
+    elif codes[0] is not None and n < 1 << 8:
+        out.append(struct.pack('>BB', codes[0], n))
+    elif n < 1 << 16:
+        out.append(struct.pack('>BH', codes[1], n))
+    elif n < 1 << 32:
+        out.append(struct.pack('>BI', codes[2], n))
+    else:
+        raise ValueError(f'msgpack: a length of {n} does not fit')
+
+
+def _pack_int(out: list, v: int) -> None:
+    if 0 <= v <= 0x7f:
+        out.append(struct.pack('>B', v))
+    elif -32 <= v < 0:
+        out.append(struct.pack('>b', v))
+    elif v >= 0:
+        for code, fmt, top in ((0xcc, '>B', 8), (0xcd, '>H', 16),
+                               (0xce, '>I', 32), (0xcf, '>Q', 64)):
+            if v < 1 << top:
+                out.append(struct.pack('>B', code) + struct.pack(fmt, v))
+                return
+        raise ValueError(f'msgpack: integer {v} does not fit')
+    else:
+        for code, fmt, top in ((0xd0, '>b', 7), (0xd1, '>h', 15),
+                               (0xd2, '>i', 31), (0xd3, '>q', 63)):
+            if v >= -(1 << top):
+                out.append(struct.pack('>B', code) + struct.pack(fmt, v))
+                return
+        raise ValueError(f'msgpack: integer {v} does not fit')
+
+
+def _pack_ext(out: list, kind: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixed:
+        out.append(struct.pack('>Bb', fixed[n], kind))
+    elif n < 1 << 8:
+        out.append(struct.pack('>BBb', 0xc7, n, kind))
+    elif n < 1 << 16:
+        out.append(struct.pack('>BHb', 0xc8, n, kind))
+    else:
+        out.append(struct.pack('>BIb', 0xc9, n, kind))
+    out.append(payload)
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """flax's _ndarray_to_bytes: msgpack of (shape, dtype name, C bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError(f'msgpack: cannot write dtype {arr.dtype}')
+    out: list = [b'\x93']
+    _pack(out, list(arr.shape))
+    _pack(out, arr.dtype.name)
+    _pack(out, np.ascontiguousarray(arr).tobytes())
+    return b''.join(out)
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    """flax's chunked form of an array above MAX_CHUNK_SIZE bytes."""
+    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
+    flat = arr.reshape(-1)
+    return {CHUNKED: True,
+            'shape': {str(i): d for i, d in enumerate(arr.shape)},
+            'chunks': {str(i): flat[k:k + size] for i, k in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _pack(out: list, v: Any, sort: bool = True) -> None:
+    if v is None:
+        out.append(b'\xc0')
+    elif v is True or v is False:
+        out.append(b'\xc3' if v else b'\xc2')
+    elif isinstance(v, np.ndarray):
+        if v.size * v.dtype.itemsize > MAX_CHUNK_SIZE:
+            _pack(out, _chunk(v), sort=False)   # flax chunks after its copy
+        else:
+            _pack_ext(out, EXT_NDARRAY, _ndarray_payload(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, EXT_NPSCALAR, _ndarray_payload(np.asarray(v)))
+    elif isinstance(v, int):
+        _pack_int(out, v)
+    elif isinstance(v, float):
+        out.append(struct.pack('>Bd', 0xcb, v))
+    elif isinstance(v, complex):
+        payload: list = [b'\x92']
+        _pack(payload, v.real)
+        _pack(payload, v.imag)
+        _pack_ext(out, EXT_COMPLEX, b''.join(payload))
+    elif isinstance(v, str):
+        data = v.encode('utf-8')
+        _header(out, len(data), 0xa0, 31, (0xd9, 0xda, 0xdb))
+        out.append(data)
+    elif isinstance(v, (bytes, bytearray, memoryview)):
+        data = bytes(v)
+        _header(out, len(data), 0, -1, (0xc4, 0xc5, 0xc6))
+        out.append(data)
+    elif isinstance(v, dict):
+        _header(out, len(v), 0x80, 15, (None, 0xde, 0xdf))
+        for key in (sorted(v) if sort else v):  # as flax's pytree copy
+            _pack(out, key)
+            _pack(out, v[key], sort)
+    elif isinstance(v, (list, tuple)):
+        _header(out, len(v), 0x90, 15, (None, 0xdc, 0xdd))
+        for value in v:
+            _pack(out, value, sort)
+    else:
+        raise ValueError(f'msgpack: cannot write a {type(v).__name__}')
+
+
+def pack(tree: Any) -> bytes:
+    """A tree of dicts, lists, Python scalars and numpy arrays -> the bytes
+    flax.serialization.msgpack_serialize gives for it: map keys sorted, as
+    its pytree copy sorts them, arrays above 1 GiB chunked as flax chunks
+    them."""
+    out: list = []
+    _pack(out, tree)
+    return b''.join(out)
+
+
+def write(path: str, tree: Any) -> None:
+    """pack(tree) into a file."""
+    data = pack(tree)
+    with open(path, 'wb') as f:
+        f.write(data)

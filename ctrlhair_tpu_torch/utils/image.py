@@ -2,10 +2,11 @@
 #
 # Port of ctrlhair_tpu/utils/image.py: PNG read/write (files and bytes),
 # uint8 <-> [-1,1] float conversion, label-map colouring and the grid
-# canvas.  The PNG codec is the standard library's zlib plus numpy (the JAX
-# package reads and writes through PIL):
-# 8-bit greyscale, RGB and RGBA, not interlaced, all five scanline filters
-# (PNG spec, section 9); anything else raises.
+# canvas.  The codec is the standard library's zlib plus numpy (the JAX
+# package reads and writes through PIL) and reads what PIL reads the way PIL
+# does: PNG of every colour type and bit depth, interlaced or not, all five
+# scanline filters (PNG spec, sections 8-9), and baseline and progressive
+# JPEG (utils/jpeg.py).  It writes 8-bit grey, RGB and RGBA PNG.
 # (ref counterparts: util/imutil.py:13-24, util/canvas_grid.py:15-34,
 #  util/mask_color_util.py:15-64)
 
@@ -21,7 +22,13 @@ from ctrlhair_tpu_torch.constants import (
 
 
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
-_CHANNELS = {0: 1, 2: 3, 6: 4}          # colour type -> samples a pixel
+JPEG_SIGNATURE = b'\xff\xd8\xff'
+# colour type -> (samples a pixel, allowed bit depths) (PNG spec, 11.2.2)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+              3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy) (PNG spec, 8.2)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -83,31 +90,122 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes, name: str = 'PNG') -> np.ndarray:
-    """The bytes of an 8-bit greyscale [H,W], RGB [H,W,3] or RGBA [H,W,4]
-    PNG, not interlaced -> uint8 array.  Other PNGs raise ValueError, whose
-    message starts with `name`."""
-    header, idat = None, []
+def _samples(raw: bytes, width: int, height: int, depth: int,
+             ch: int) -> np.ndarray:
+    """Scanlines of one (sub)image -> [height, width, ch] samples (uint8,
+    or uint16 at depth 16)."""
+    stride = (width * ch * depth + 7) // 8
+    rows = _unfilter(raw, height, stride, max(1, ch * depth // 8))
+    if depth == 16:
+        return rows.view('>u2').astype(np.uint16).reshape(height, width, ch)
+    if depth == 8:
+        return rows.reshape(height, width, ch)
+    bits = np.unpackbits(rows, axis=1)[:, :width * ch * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(height, width, ch, depth) * weights).sum(
+        -1, dtype=np.uint8)
+
+
+def _png_samples(raw: bytes, width: int, height: int, depth: int, ch: int,
+                 interlace: int) -> np.ndarray:
+    """Decompressed image data -> [H, W, ch] samples, Adam7 undone."""
+    if not interlace:
+        return _samples(raw, width, height, depth, ch)
+    out = np.zeros((height, width, ch), np.uint16 if depth == 16
+                   else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        w = max(0, (width - x0 + dx - 1) // dx)
+        h = max(0, (height - y0 + dy - 1) // dy)
+        if w == 0 or h == 0:
+            continue
+        n = h * ((w * ch * depth + 7) // 8 + 1)
+        out[y0::dy, x0::dx] = _samples(raw[pos:pos + n], w, h, depth, ch)
+        pos += n
+    if pos != len(raw):
+        raise ValueError(f'PNG: {len(raw)} bytes of interlaced scanlines, '
+                         f'expected {pos}')
+    return out
+
+
+def _decode_png(data: bytes, name: str):
+    """-> (samples [H, W, ch], colour type, bit depth, palette [256, 3])."""
+    header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b'IHDR':
             header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'PLTE':
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8)
         elif kind == b'IDAT':
             idat.append(body)
     if header is None or not idat:
         raise ValueError(f'{name}: PNG without IHDR or IDAT')
     width, height, depth, colour, method, filt, interlace = header
-    if depth != 8 or colour not in _CHANNELS or method or filt or interlace:
+    if colour not in _PNG_TYPES or depth not in _PNG_TYPES[colour][1] \
+            or method or filt or interlace > 1:
         raise ValueError(f'{name}: unsupported PNG (bit depth {depth}, '
-                         f'colour type {colour}, interlace {interlace}); '
-                         '8-bit grey, RGB or RGBA, not interlaced, expected')
-    ch = _CHANNELS[colour]
+                         f'colour type {colour}, interlace {interlace})')
+    if colour == 3 and palette is None:
+        raise ValueError(f'{name}: palette PNG without PLTE')
     try:
         raw = zlib.decompress(b''.join(idat))
     except zlib.error as e:
         raise ValueError(f'{name}: bad PNG image data: {e}') from e
-    img = _unfilter(raw, height, width * ch, ch)
-    return img.reshape(height, width) if ch == 1 else \
-        img.reshape(height, width, ch)
+    samples = _png_samples(raw, width, height, depth, _PNG_TYPES[colour][0],
+                           interlace)
+    lut = np.zeros((256, 3), np.uint8)       # entries past PLTE are black
+    if palette is not None:
+        pal = palette.reshape(-1, 3)[:256]
+        lut[:len(pal)] = pal
+    return samples, colour, depth, lut
+
+
+def decode_png(data: bytes, name: str = 'PNG') -> np.ndarray:
+    """The bytes of a PNG -> the array that np.asarray(PIL.Image.open(...))
+    gives: every colour type at every bit depth the PNG spec allows,
+    interlaced or not.  Grey: [H,W], bool at depth 1, scaled to 0..255 at
+    depths 2 and 4, uint16 at 16; palette: [H,W] indices; grey+alpha:
+    [H,W,2], or RGBA [H,W,4] at depth 16; RGB [H,W,3]; RGBA [H,W,4].
+    16-bit colour keeps the high byte of each sample.  ValueError for
+    anything else, its message starting with `name` (or 'not a PNG
+    file')."""
+    samples, colour, depth, _ = _decode_png(data, name)
+    if colour == 0:
+        grey = samples[..., 0]
+        if depth == 1:
+            return grey != 0
+        return grey * (255 // (2 ** depth - 1)) if depth < 8 else grey
+    if colour == 3:
+        return samples[..., 0]
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+        if colour == 4:
+            samples = samples[..., [0, 0, 0, 1]]
+    return samples
+
+
+def decode_rgb(data: bytes, name: str = 'image') -> np.ndarray:
+    """The bytes of a PNG or a JPEG, told apart by their first bytes ->
+    uint8 RGB [H,W,3], as PIL.Image.open(...).convert('RGB') gives it:
+    palette colours for a palette PNG, grey repeated (16-bit grey clipped
+    to 255), alpha dropped.  ValueError for other bytes."""
+    if data[:3] == JPEG_SIGNATURE:
+        from ctrlhair_tpu_torch.utils.jpeg import decode_jpeg
+        img = decode_jpeg(data, name)
+    else:
+        samples, colour, depth, lut = _decode_png(data, name)
+        if colour == 3:
+            return lut[samples[..., 0]]
+        if colour == 0 and depth == 16:
+            img = np.minimum(samples[..., 0], 255).astype(np.uint8)
+        else:
+            img = decode_png(data, name)
+            if colour == 4:
+                img = img[..., 0]
+    if img.ndim == 2:
+        return np.repeat(img.astype(np.uint8)[..., None] * (
+            255 if img.dtype == bool else 1), 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -135,7 +233,8 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def read_png(path: str) -> np.ndarray:
-    """A PNG file -> uint8 array (see decode_png)."""
+    """A PNG file -> np.asarray(PIL.Image.open(path)) (see decode_png);
+    label maps of any colour type come back as their indices."""
     with open(path, 'rb') as f:
         return decode_png(f.read(), path)
 
@@ -148,12 +247,10 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A PNG as uint8 RGB [H,W,3]: grey is repeated, alpha dropped (as
-    PIL's convert('RGB'))."""
-    img = read_png(path)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    """A PNG or JPEG file as uint8 RGB [H,W,3], as PIL's
+    Image.open(path).convert('RGB') (see decode_rgb)."""
+    with open(path, 'rb') as f:
+        return decode_rgb(f.read(), path)
 
 
 def write_rgb(path: str, img: np.ndarray) -> None:

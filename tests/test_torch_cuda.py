@@ -256,3 +256,107 @@ def test_multigrid_blend_on_card_matches_cpu(card, h, w):
     want = poisson_blend(*args, method='mg')
     assert got.device == card and torch.isfinite(got).all()
     assert float((got.cpu() - want).abs().max()) <= 0.05
+
+
+def _leaves(t, p=()):
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _leaves(t[k], p + (k,))
+    else:
+        yield p, np.asarray(t)
+
+
+def _hold_step(card, cpu, init, lrs, bar=1e-4):
+    """A train step on the card against the CPU's from the same state:
+    every leaf within `bar` of the CPU's, scaled by the larger of 1 and the
+    leaf's largest magnitude, Adam's mu (the gradient) included; a
+    parameter entry whose gradient the devices do not reproduce to 1% is
+    rounding noise, which Adam scales to a step of about lr of either sign
+    (a bias that a batch-statistics BatchNorm cancels, a WGAN critic's bias
+    of a unit with the same slope on every sample), and is held to a move
+    of at most 2 lr instead."""
+    for part, lr in lrs.items():
+        mu_g, mu_r = (dict(_leaves(t[part]['opt_state']['0']['mu']))
+                      for t in (card, cpu))
+        p0 = dict(_leaves(init[part]['params']))
+        sides = [dict(_leaves(t[part]['params'])) for t in (card, cpu)]
+        for path, m in mu_r.items():
+            noisy = np.abs(mu_g[path] - m) > 1e-2 * np.abs(m)
+            for side in sides:
+                assert np.all(np.abs(side[path] - p0[path])[noisy]
+                              <= 2 * lr), path
+                side[path] = np.where(noisy, 0.0, side[path])
+        card[part]['params'], cpu[part]['params'] = sides
+    g, r = list(_leaves(card)), list(_leaves(cpu))
+    assert [p for p, _ in g] == [p for p, _ in r]
+    for (path, a), (_, b) in zip(g, r):
+        if b.size:
+            scale = max(1.0, float(np.abs(b).max()))
+            assert float(np.abs(a - b).max()) <= bar * scale, path
+
+
+@pytest.mark.cuda
+def test_ct_train_step_on_card_matches_cpu(card):
+    """One colour/texture step (lambda_rec_img on, through a small SEAN) on
+    the card against the CPU from the same state, batch and draws, held as
+    _hold_step says."""
+    import dataclasses
+    from ctrlhair_tpu_torch.models.layers import init_parameters_
+    from ctrlhair_tpu_torch.models.sean import SEAN
+    from ctrlhair_tpu_torch.training.color_texture_trainer import (
+        ColorTextureTrainer, synthetic_batch)
+    cfg = dataclasses.replace(
+        C.ColorTextureConfig(style_dim=64, g_hidden_dim=32, d_hidden_dim=32),
+        lambda_rec_img={0: 10.0})
+    scfg = C.SEANConfig(crop_size=32, ngf=2, zencoder_ngf=2, style_dim=64)
+    sean = SEAN(scfg)
+    init_parameters_(sean, torch.Generator().manual_seed(0))
+    batch = synthetic_batch(torch.Generator().manual_seed(1), cfg, 16)
+    g = torch.Generator().manual_seed(2)
+    batch['sean_code'] = torch.randn((16, 19, 64), generator=g)
+    batch['label'] = torch.randint(0, 19, (16, 32, 32), generator=g)
+    batch['image'] = torch.rand((16, 32, 32, 3), generator=g) * 2 - 1
+    trees, preds0 = [], None
+    for device in ('cpu', 'cuda'):
+        tr = ColorTextureTrainer(cfg, sean=sean.to(device), device=device)
+        state, preds = tr.init_state(0)
+        if preds0 is None:
+            init, preds0 = state.to_tree(), preds
+        else:
+            state.load_tree(init)
+            for k in preds:
+                preds[k].load_state_dict(preds0[k].state_dict())
+        draws = tr.draws(0, 16)
+        state, m = tr.train_step(
+            state, {k: v.to(device) for k, v in batch.items()}, preds,
+            draws)
+        assert bool(m['finite']) and 'g/lambda_rec_img' in m
+        trees.append(state.to_tree())
+    _hold_step(trees[1], trees[0], init,
+               {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_g})
+
+
+@pytest.mark.cuda
+def test_predictor_train_step_on_card_matches_cpu(card):
+    """One rgb-predictor step on the card against the CPU, held as
+    _hold_step says."""
+    from ctrlhair_tpu_torch.training.predictor_trainer import (
+        PredictorTrainer)
+    cfg = C.PredictorConfig(style_dim=64, hidden_dim=32)
+    g = torch.Generator().manual_seed(3)
+    code = torch.randn((64, 64), generator=g)
+    batch = {'code': code, 'rgb_mean': code[:, :3] * 40 + 128,
+             'pca_std': code[:, 3:4].abs() * 30 + 20}
+    trees = []
+    for device in ('cpu', 'cuda'):
+        tr = PredictorTrainer(cfg, device=device)
+        state = tr.init_state(0)
+        if trees:
+            state.load_tree(init)
+        else:
+            init = state.to_tree()
+        state, m = tr.train_step(
+            state, {k: v.to(device) for k, v in batch.items()})
+        assert bool(m['finite'])
+        trees.append(state.to_tree())
+    _hold_step(trees[1], trees[0], init, {'model': cfg.lr})

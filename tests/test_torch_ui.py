@@ -291,7 +291,8 @@ def test_web_requests_record_no_graph(served):
 
 
 def test_web_load_refuses_jpeg(port, tmp_path):
-    """/load reads PNG only: a JPEG answers 500 with the codec's message."""
+    """/load refuses bytes that are no image it can decode: a JPEG cut off
+    after its first marker answers 500 with the codec's message."""
     jpeg = tmp_path / 'photo.jpg'
     jpeg.write_bytes(b'\xff\xd8\xff\xe0\x00\x10JFIF\x00' + bytes(64))
     editor = web.WebEditor(Backend(cfg=port.cfg, editor=port, seed=SEED))
@@ -302,5 +303,34 @@ def test_web_load_refuses_jpeg(port, tmp_path):
         srv.shutdown()
         srv.server_close()
         editor.close()
-    assert code == 500 and 'not a PNG' in json.loads(body)['error']
+    assert code == 500 and 'JPEG' in json.loads(body)['error']
     assert editor.images['input'] is None
+
+
+def test_web_load_palette_png_and_jpeg(port, tmp_path):
+    """/load takes what the JAX UI's PIL reader takes: a palette PNG and a
+    progressive JPEG of the sample answer 200, and each loads as an RGB PNG
+    of PIL's convert('RGB') of it loads."""
+    from PIL import Image
+    photo = Image.open(JaxBackend._repo_path('samples/input.png'))
+    paths = {'palette': tmp_path / 'palette.png',
+             'jpeg': tmp_path / 'photo.jpg'}
+    photo.convert('RGB').quantize(colors=64).save(paths['palette'])
+    photo.convert('RGB').save(paths['jpeg'], quality=90, progressive=True)
+    editor = web.WebEditor(Backend(cfg=port.cfg, editor=port, seed=SEED))
+    srv, base = _serve(editor)
+    try:
+        for name, path in paths.items():
+            rgb = tmp_path / f'{name}_rgb.png'
+            write_rgb(str(rgb), np.asarray(Image.open(path).convert('RGB')))
+            shown = []
+            for p in (path, rgb):
+                code, body = _request(base, '/load', {'path': str(p),
+                                                      'which': 'input'})
+                assert code == 200, body
+                shown.append(editor.images['input'])
+            np.testing.assert_array_equal(shown[0], shown[1])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        editor.close()
