@@ -26,15 +26,25 @@ Drives the port's four paths at the full default PipelineConfig() width:
      then auto_curate('texture') and render_candidate_grids on its session;
      the headless demo (ui.demo.main) in this process; and the multigrid
      blend on the card against the CPU;
-  5. the training slice, which launches neither kernel (both counts held
-     at 0): the colour/texture trainer at ColorTextureConfig() (batch 128)
-     with a frozen seeded SEANConfig() SEAN and lambda_rec_img on from step
-     0, both predictor trainers at their configs (batch 256), five steps
-     each, each held to the port's CPU step from the same state, batch and
-     draws, to a NaN batch that must leave the state bit-identical, and to
-     a save after step 2 whose resume must equal the unbroken run bit for
-     bit; then run_color_texture.main([--synthetic, --steps 3]) in this
-     process, its checkpoint read back by the port's reader.
+  5. the training slice, its launch counts set to 0 before it and read
+     after it: (d) generate_warp_pool(count=24, num_threads=4) on cuda:0
+     over 12 painted 512 px parses, one K2 launch a warp, each pool mask
+     held to the same pair through the host route, then ShapeDataset
+     batches from the pool; (e) the shape trainer at ShapeConfig() with the
+     soak's recipe (kl_free_bits 0.25, lambda_geo 30, lambda_info 1), batch
+     4 from the pool; (a) the colour/texture trainer at ColorTextureConfig()
+     (batch 128) with a frozen seeded SEANConfig() SEAN and lambda_rec_img
+     on from step 0; (b) both predictor trainers at their configs (batch
+     256); (f) the face parser at BiSeNetConfig() (batch 16); (g) the
+     landmark regressor at LandmarkNetConfig() (batch 64 from the port's
+     renderer); five steps each, each held to the port's CPU step from the
+     same state, batch and draws, to a NaN batch that must leave the state
+     bit-identical, and to a save after step 2 whose resume must equal the
+     unbroken run bit for bit; then (c) run_color_texture.main([--synthetic,
+     --steps 3]) and (h) run_shape.main on the pool, run_bisenet.main
+     --synthetic and run_landmark.main, 3 steps each, in this process, each
+     checkpoint read back by the port's reader, the landmark one loaded by
+     load_landmark_net.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -61,6 +71,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import functools
 import gc
 import json
@@ -1450,33 +1461,36 @@ CT_BATCH, PREDICTOR_BATCH = 128, 256
 TRAIN_CARD_BAR = 1e-4
 
 
-def deterministic(fn):
-    """fn run with cuDNN held to deterministic algorithms, so that two runs
-    of the same steps (the resume check) can agree bit for bit."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        saved = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.backends.cudnn.deterministic = saved
-    return run
+def cudnn_flags(**flags):
+    """A decorator: fn run with the given torch.backends.cudnn flags set,
+    and the old values restored after it."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            saved = {k: getattr(torch.backends.cudnn, k) for k in flags}
+            for k, v in flags.items():
+                setattr(torch.backends.cudnn, k, v)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for k, v in saved.items():
+                    setattr(torch.backends.cudnn, k, v)
+        return run
+    return wrap
 
 
-def autotuned(fn):
-    """fn run with cudnn.benchmark on (cuDNN times its algorithms for each
-    new shape and keeps the fastest), then off again: a reading of what
-    the convolutions could cost, not a setting of any path."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        saved = torch.backends.cudnn.benchmark
-        torch.backends.cudnn.benchmark = True
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.backends.cudnn.benchmark = saved
-    return run
+# cuDNN held to deterministic algorithms, so that two runs of the same steps
+# (the resume check) can agree bit for bit
+deterministic = cudnn_flags(deterministic=True)
+# cuDNN off: the convolutions on PyTorch's own CUDA kernels (im2col and
+# cuBLAS GEMM), without cuDNN's FFT and Winograd algorithms, whose float32
+# error reached 1.4e-3 of a gradient's scale in the shape and face-parser
+# steps (measured); a reading beside the checks, not a setting of any path
+native_convs = cudnn_flags(enabled=False)
+# cudnn.benchmark on (cuDNN times its algorithms for each new shape and
+# keeps the fastest): a reading of what the convolutions could cost, not a
+# setting of any path
+autotuned = cudnn_flags(benchmark=True)
 
 
 def profile_step(fn, step_ms: float) -> dict:
@@ -1564,7 +1578,7 @@ def train_steps(step_fn, state, batches, draws_fn=None):
     return state, metrics, times
 
 
-def check_metrics(metrics, ref, what):
+def check_metrics(metrics, ref, what, gate: bool = True):
     worst = 0.0
     for k, v in ref.items():
         a, b = float(metrics[k]), float(v)
@@ -1573,7 +1587,7 @@ def check_metrics(metrics, ref, what):
                 raise AssertionError(f'{what}: finite {a} against {b}')
             continue
         worst = max(worst, abs(a - b) / max(1.0, abs(b)))
-    if not worst <= TRAIN_CARD_BAR:
+    if gate and not worst <= TRAIN_CARD_BAR:
         raise AssertionError(f'{what}: a loss differs by {worst:.3g} '
                              f'(bar {TRAIN_CARD_BAR})')
     return worst
@@ -1593,25 +1607,41 @@ def ill_conditioned(card, cpu, part: str) -> dict:
             for path, a in mus[1].items()}
 
 
-def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict):
-    """One step on the card against the port's CPU step from the same
-    state, batch and draws.  Every loss and every leaf of the state within
-    TRAIN_CARD_BAR (scaled by the leaf's magnitude), the gradients (Adam's
+def trained_modules(state) -> list:
+    """The modules a train state trains: a GAN state's three parts or the
+    one model of the others."""
+    parts = state.parts().values() if hasattr(state, 'parts') \
+        else [state.model]
+    return [part.module for part in parts]
+
+
+def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
+    """(state tree, metrics) after one step on `device` from `init_tree`,
+    the models computing in `dtype` (None: as built); `draws` None for a
+    trainer whose step draws nothing."""
+    from ctrlhair_tpu_torch.models.layers import set_compute_dtype
+    trainer, state, args = make_trainer(device)
+    state.load_tree(init_tree)
+    if dtype is not None:
+        for module in trained_modules(state):
+            set_compute_dtype(module, dtype)
+    b = to_device(batch, device)
+    extra = () if draws is None else ({
+        k: ([m.to(device) for m in v] if isinstance(v, list)
+            else v.to(device)) for k, v in draws.items()},)
+    state, metrics = trainer.train_step(state, b, *args(state), *extra)
+    return state.to_tree(), {k: v.cpu() for k, v in metrics.items()}
+
+
+def held_to_cpu(card, card_m, cpu, cpu_m, init_tree, lr: dict,
+                gate: bool = True) -> dict:
+    """Every loss and every leaf of the card's state within TRAIN_CARD_BAR
+    of the CPU's (scaled by the leaf's magnitude), the gradients (Adam's
     mu) included; the parameter entries whose gradient is rounding noise
     (ill_conditioned) are held instead to a move of at most 2 lr on both
-    devices.  `lr`: {part: learning rate}."""
-    out = []
-    for device in ('cuda', 'cpu'):
-        trainer, state, args = make_trainer(device)
-        state.load_tree(init_tree)
-        b = to_device(batch, device)
-        d = {k: ([m.to(device) for m in v] if isinstance(v, list)
-                 else v.to(device)) for k, v in draws.items()}
-        state, metrics = trainer.train_step(state, b, *args(state), d)
-        out.append((state.to_tree(), {k: v.cpu() for k, v in
-                                      metrics.items()}))
-    (card, card_m), (cpu, cpu_m) = out
-    loss_err = check_metrics(card_m, cpu_m, 'card against CPU')
+    devices.  `lr`: {part: learning rate} of the Adam-trained parts.  With
+    gate=False the differences are measured and nothing raises."""
+    loss_err = check_metrics(card_m, cpu_m, 'card against CPU', gate)
     noisy = 0
     for part, part_lr in lr.items():
         masks = ill_conditioned(card, cpu, part)
@@ -1620,7 +1650,7 @@ def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict):
         for path, mask in masks.items():
             for side in sides:
                 moved = np.abs(side[path] - init[path])[mask]
-                if moved.size and moved.max() > 2 * part_lr:
+                if gate and moved.size and moved.max() > 2 * part_lr:
                     raise AssertionError(
                         f'{part}/{"/".join(path)}: an entry with a noise '
                         f'gradient moved {moved.max():.3g} > 2 lr')
@@ -1629,12 +1659,40 @@ def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict):
         for t, side in zip((card, cpu), sides):
             t[part]['params'] = side
     err, where = tree_diff(card, cpu)
-    if not err <= TRAIN_CARD_BAR:
+    if gate and not err <= TRAIN_CARD_BAR:
         raise AssertionError(f'card against CPU: {where} differs by '
                              f'{err:.3g} (bar {TRAIN_CARD_BAR})')
     return {'state_max_scaled_err': err, 'worst_leaf': where,
             'loss_max_scaled_err': loss_err,
             'noise_gradient_entries': noisy}
+
+
+def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict,
+                     dtype=None, measured=None):
+    """One step on the card against the port's CPU step from the same
+    state, batch and draws, both computing in `dtype` (None: as built),
+    held as held_to_cpu says.  `measured`: {name: (wrapper, dtype)} of
+    further card steps, run under the wrapper (as `deterministic`), whose
+    differences from the CPU step in the same dtype are measured and
+    reported under 'measured', not held to the bar."""
+    cpu = {}
+
+    def cpu_step(dt):
+        if dt not in cpu:
+            cpu[dt] = one_step(make_trainer, init_tree, batch, draws, 'cpu',
+                               dt)
+        tree, metrics = cpu[dt]
+        return copy.deepcopy(tree), metrics
+
+    card, card_m = one_step(make_trainer, init_tree, batch, draws, 'cuda',
+                            dtype)
+    out = held_to_cpu(card, card_m, *cpu_step(dtype), init_tree, lr)
+    for name, (wrap, dt) in (measured or {}).items():
+        card, card_m = wrap(one_step)(make_trainer, init_tree, batch, draws,
+                                      'cuda', dt)
+        out.setdefault('measured', {})[name] = held_to_cpu(
+            card, card_m, *cpu_step(dt), init_tree, lr, gate=False)
+    return out
 
 
 def nan_and_resume(make_trainer, init_tree, batches, nan_batch):
@@ -1915,17 +1973,327 @@ def phase_train_script(smi: str):
     return {'wall_ms': wall, 'checkpoint_step': step}
 
 
-def phase_training(smi: str):
-    """The training slice: (a) colour/texture, (b) predictors, (c) the
-    entry point.  Timed with cuDNN's defaults, as the entry points run;
-    the checks run with deterministic cuDNN algorithms (deterministic)."""
-    reset_launches()
-    rec = {'color_texture': phase_train_ct(smi)}
+# The shape trainer's pool: painted 512 px parses, the warps, and the bar of
+# each pool mask against the same pair through the host route
+POOL_PARSES, POOL_WARPS, POOL_THREADS = 12, 24, 4
+SHAPE_BATCH, BISENET_BATCH, LANDMARK_BATCH = 4, 16, 64
+
+
+def trainer_phase(name: str, make_trainer, batches, nan_batch, draws,
+                  lr: dict, smi: str) -> dict:
+    """The steps of one trainer on the card, timed (host ms a step, ended by
+    torch.cuda.synchronize(); steady state = the median of steps 2 to 5),
+    its peak device memory and a profiler reading of one step; then the
+    checks: the card's first step against the port's CPU step (held with
+    the models computing in float64, measured in float32), a NaN batch, and
+    a resume after step 2."""
+    trainer, state, args = make_trainer('cuda')
+    init_tree = state.to_tree()
+    n_params = sum(p.numel() for m in trained_modules(state)
+                   for p in m.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, ms = train_steps(
+        lambda st, b: trainer.train_step(st, b, *args(st)), state, batches)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(metrics['finite']):
+        raise AssertionError(f'{name} step: {metrics}')
+    med = float(np.median(ms[1:]))
+    prof = profile_step(lambda: trainer.train_step(
+        state, batches[0], *args(state)), med)
+    losses = {k: round(float(v), 5) for k, v in metrics.items()
+              if k != 'finite' and v.numel() == 1}
+    log(f'[time] train {name} ({n_params} trained parameters): '
+        f'{len(batches)} steps {", ".join(f"{t:.3f}" for t in ms)} ms; '
+        f'{med:.3f} ms a step, {1e3 / med:.2f} steps/s; peak device memory '
+        f'{peak} B; a step: {prof["device_ms"]:.3f} ms of kernels in '
+        f'{prof["launches"]} launches, card idle '
+        f'{100 * prof["idle_share"]:.1f}%; top: '
+        + ', '.join(f'{n} {t:.3f} ms' for n, t in prof['top'])
+        + f'; losses {losses} ({smi})')
+    # held with the models computing in float64 on both devices: in
+    # float32 the shape step's own error (against float64, on the CPU)
+    # reaches 1.2e-4 of a gradient's scale, the bar itself; the float32
+    # step, as trained, measured beside it
+    cpu_check = deterministic(card_against_cpu)(
+        make_trainer, init_tree, {k: v.cpu() for k, v in batches[0].items()},
+        None if draws is None else {k: v.cpu() for k, v in draws.items()},
+        lr, dtype=torch.float64,
+        measured={'float32': (deterministic, None),
+                  'float32_native_convs': (native_convs, None)})
+    checks = deterministic(nan_and_resume)(make_trainer, init_tree, batches,
+                                           nan_batch)
+    log(f'[train] {name} checks: card against CPU {cpu_check} (bar '
+        f'{TRAIN_CARD_BAR}); {checks}')
+    del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
-    rec['predictors'] = phase_train_predictors(smi)
-    rec['run_color_texture'] = phase_train_script(smi)
-    return read_launches('training', 0, 0), rec
+    return {'trained_parameters': n_params, 'step_ms': ms, 'median_ms': med,
+            'steps_per_s': 1e3 / med, 'peak_bytes': peak, 'profile': prof,
+            'losses': losses, 'card_vs_cpu': cpu_check, **checks}
+
+
+def pool_root(tmp: str) -> str:
+    """A data root of POOL_PARSES painted 512 px parses in two datasets
+    (faces of different places and sizes), written as PNG."""
+    from ctrlhair_tpu_torch.utils.image import write_png
+    rng = np.random.default_rng(SEED)
+    for d, ds in enumerate(('ffhq', 'CelebaMask_HQ')):
+        os.makedirs(os.path.join(tmp, ds, 'images_256'))
+        os.makedirs(os.path.join(tmp, ds, 'label'))
+        for i in range(POOL_PARSES // 2):
+            lab = paint_face(512, rng.uniform(0.44, 0.56),
+                             rng.uniform(0.46, 0.56), rng.uniform(0.8, 1.05),
+                             'cuda')
+            write_png(os.path.join(tmp, ds, 'label', f'{i:05d}.png'),
+                      lab.cpu().numpy().astype(np.uint8))
+            write_png(os.path.join(tmp, ds, 'images_256', f'{i:05d}.png'),
+                      np.zeros((8, 8, 3), np.uint8))
+    return tmp
+
+
+def phase_train_pool(tmp: str, smi: str):
+    """(d) generate_warp_pool on cuda:0 (K2 once a warp), each mask against
+    the same pair through the host route, then ShapeDataset batches from
+    it."""
+    from ctrlhair_tpu_torch.config import ShapeConfig
+    from ctrlhair_tpu_torch.data.catalog import DataCatalog
+    from ctrlhair_tpu_torch.data.shape_dataset import (
+        ShapeDataset, generate_warp_pool)
+    from ctrlhair_tpu_torch.ops.landmarks import estimate_landmarks_81
+    from ctrlhair_tpu_torch.ops.raster_pallas import RASTER_UV
+    from ctrlhair_tpu_torch.ops.warp import hair_mask_transfer_warp
+    from ctrlhair_tpu_torch.utils.image import read_png
+    root = pool_root(tmp)
+    cat = DataCatalog(root, ['ffhq', 'CelebaMask_HQ'], validity_check=False)
+    out = os.path.join(root, 'shape_training_wrap_pool')
+    before = RASTER_UV.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = generate_warp_pool(cat, out, POOL_WARPS,
+                                 num_threads=POOL_THREADS, device='cuda')
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = RASTER_UV.launches - before
+    names = sorted(os.listdir(out))
+    if written != POOL_WARPS or len(names) != POOL_WARPS or \
+            launched < POOL_WARPS:
+        raise AssertionError(f'warp pool: {written} written, {len(names)} '
+                             f'files, {launched} K2 launches, expected '
+                             f'{POOL_WARPS}')
+    agree = []
+    for name in names:
+        parts = name[:-len('.png')].split('___')
+        hair, face = (read_png(cat.label_path(f'{parts[a]}___{parts[a + 1]}'
+                                              )).astype(np.int32)
+                      for a in (0, 2))
+        host = hair_mask_transfer_warp(hair, face,
+                                       estimate_landmarks_81(hair),
+                                       estimate_landmarks_81(face),
+                                       raster='host')
+        agree.append(float((read_png(os.path.join(out, name)) == host)
+                           .mean()))
+    if min(agree) < ROUTES_AGREE:
+        raise AssertionError(f'warp pool against the host route: '
+                             f'{min(agree):.6f} of labels equal (bar '
+                             f'{ROUTES_AGREE})')
+    ds = ShapeDataset(ShapeConfig(), root)
+    batches = [{k: torch.from_numpy(v).to('cuda') for k, v in
+                ds.training_batch(SHAPE_BATCH).items()}
+               for _ in range(TRAIN_STEPS)]
+    if any(tuple(b['target'].shape) != (SHAPE_BATCH, 256, 256, 19)
+           for b in batches):
+        raise AssertionError('ShapeDataset batch of the wrong shape')
+    log(f'[train] warp pool: {POOL_PARSES} painted 512 px parses, '
+        f'generate_warp_pool(count={POOL_WARPS}, num_threads={POOL_THREADS})'
+        f' on cuda:0: {written} written in {wall:.1f} ms, '
+        f'{wall / POOL_WARPS:.3f} ms a warp; {launched} K2 launches; against '
+        f'the host route: min {min(agree):.6f}, mean {np.mean(agree):.6f} of '
+        f'labels equal; ShapeDataset(ShapeConfig()).training_batch('
+        f'{SHAPE_BATCH}) x {TRAIN_STEPS} ({smi})')
+    return root, batches, {'warps': written, 'wall_ms': wall,
+                           'ms_per_warp': wall / POOL_WARPS,
+                           'raster_uv_launches': launched,
+                           'min_labels_equal': min(agree),
+                           'mean_labels_equal': float(np.mean(agree))}
+
+
+def phase_train_shape(batches, smi: str) -> dict:
+    """(e) The shape trainer at ShapeConfig() with the soak's recipe
+    (kl_free_bits 0.25, lambda_geo 30, lambda_info 1), batch 4 from the
+    pool."""
+    import dataclasses
+    from ctrlhair_tpu_torch.config import ShapeConfig
+    from ctrlhair_tpu_torch.training.shape_trainer import ShapeTrainer
+    cfg = dataclasses.replace(ShapeConfig(), kl_free_bits=0.25,
+                              lambda_geo=30.0, lambda_info=1.0)
+
+    def make_trainer(device):
+        trainer = ShapeTrainer(cfg, device=device, seed=SEED)
+        return trainer, trainer.init_state(SEED), lambda st: ()
+
+    nan_batch = {k: v.clone() for k, v in batches[0].items()}
+    nan_batch['face'][1, 3, 4, 0] = float('nan')
+    rec = trainer_phase(
+        'shape ShapeConfig() kl_free_bits=0.25 lambda_geo=30 lambda_info=1,'
+        f' batch {SHAPE_BATCH}',
+        make_trainer, batches, nan_batch,
+        ShapeTrainer(cfg, device='cuda', seed=SEED).draws(0, SHAPE_BATCH),
+        {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_dz}, smi)
+    return {'config': 'ShapeConfig(), kl_free_bits=0.25, lambda_geo=30, '
+                      'lambda_info=1', 'batch': SHAPE_BATCH, **rec}
+
+
+def phase_train_bisenet(smi: str) -> dict:
+    """(f) The face parser at BiSeNetConfig() (ResNet-18, 512 px), batch 16
+    of synthetic batches drawn as run_bisenet draws them."""
+    from ctrlhair_tpu_torch.config import BiSeNetConfig
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    cfg = BiSeNetConfig()
+    s = cfg.input_size
+    host_rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        image = host_rng.standard_normal((BISENET_BATCH, s, s, 3))
+        label = host_rng.integers(0, 19, (BISENET_BATCH, s, s))
+        batches.append({
+            'image': torch.from_numpy(image.astype(np.float32)).cuda(),
+            'label': torch.from_numpy(label.astype(np.int32)).cuda()})
+
+    def make_trainer(device):
+        trainer = BiSeNetTrainer(cfg, device=device)
+        return trainer, trainer.init_state(SEED), lambda st: ()
+
+    nan_batch = {k: v.clone() for k, v in batches[0].items()}
+    nan_batch['image'][2, 7, 9, 1] = float('nan')
+    rec = trainer_phase(f'bisenet BiSeNetConfig(), batch {BISENET_BATCH}',
+                        make_trainer, batches, nan_batch, None, {}, smi)
+    return {'config': 'BiSeNetConfig()', 'batch': BISENET_BATCH, **rec}
+
+
+def phase_train_landmark(smi: str) -> dict:
+    """(g) The landmark regressor at LandmarkNetConfig() (128 px), batch 64
+    from the port's renderer."""
+    from ctrlhair_tpu_torch.data.landmark_dataset import training_batch
+    from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
+    from ctrlhair_tpu_torch.training.landmark_trainer import LandmarkTrainer
+    cfg = LandmarkNetConfig()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in training_batch(
+        rng, LANDMARK_BATCH, cfg.input_size).items()}
+        for _ in range(TRAIN_STEPS)]
+    render_ms = (time.perf_counter() - t0) * 1e3
+
+    def make_trainer(device):
+        trainer = LandmarkTrainer(cfg, device=device)
+        return trainer, trainer.init_state(SEED), lambda st: ()
+
+    nan_batch = {k: v.clone() for k, v in batches[0].items()}
+    nan_batch['image'][5, 3, 4, 0] = float('nan')
+    log(f'[time] landmark renderer: {TRAIN_STEPS} x {LANDMARK_BATCH} faces '
+        f'and backgrounds at {cfg.input_size} px in {render_ms:.1f} ms on '
+        f'the host, {render_ms / (TRAIN_STEPS * LANDMARK_BATCH):.3f} ms a '
+        f'sample')
+    rec = trainer_phase(f'landmark LandmarkNetConfig(), batch '
+                        f'{LANDMARK_BATCH}', make_trainer, batches,
+                        nan_batch, None, {'model': cfg.lr}, smi)
+    return {'config': 'LandmarkNetConfig()', 'batch': LANDMARK_BATCH,
+            'render_ms_per_sample': render_ms / (TRAIN_STEPS
+                                                 * LANDMARK_BATCH), **rec}
+
+
+def phase_train_entry_points(root: str, smi: str) -> dict:
+    """(h) run_shape.main on the pool, run_bisenet.main --synthetic and
+    run_landmark.main, 3 steps each on cuda:0; each checkpoint read back
+    equal; the landmark checkpoint loaded by load_landmark_net, which
+    predicts finite points."""
+    import tempfile
+    from ctrlhair_tpu_torch.data.landmark_dataset import (
+        render_face, transform_landmarks)
+    from ctrlhair_tpu_torch.ops import landmarks
+    from ctrlhair_tpu_torch.training import (run_bisenet, run_landmark,
+                                             run_shape)
+    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, main, argv in (
+                ('run_shape', run_shape.main, ['--data-root', root]),
+                ('run_bisenet', run_bisenet.main, ['--synthetic'])):
+            d = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            state = main(argv + ['--steps', '3', '--out-dir', d])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            tree, step = load_checkpoint(os.path.join(d, 'checkpoints'))
+            module = (state.gen if name == 'run_shape' else state.model
+                      ).module
+            if step != 2 or state.step != 3 or \
+                    not bit_equal(tree, state.to_tree()) or \
+                    next(module.parameters()).device.type != 'cuda':
+                raise AssertionError(f'{name}: step {step}, state step '
+                                     f'{state.step}, checkpoint not equal '
+                                     'or not on the card')
+            out[name] = {'wall_ms': wall, 'checkpoint_step': step}
+            del state, module
+            gc.collect()
+        d = os.path.join(tmp, 'landmark')
+        t0 = time.perf_counter()
+        state, _, ev = run_landmark.main(['--steps', '3', '--pool', '256',
+                                          '--out-dir', d])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        tree, step = load_checkpoint(d)
+        if step != 3 or not bit_equal(tree, state.model.to_tree()['params']):
+            raise AssertionError('run_landmark\'s checkpoint does not read '
+                                 'back as its parameters')
+        try:
+            if not landmarks.load_landmark_net(d, device='cuda'):
+                raise AssertionError('load_landmark_net found no checkpoint')
+            img = render_face(transform_landmarks(np.random.default_rng(1)),
+                              np.random.default_rng(2), 256)
+            pts = landmarks.net_landmarks_81(img, min_presence=0.0,
+                                             device='cuda')
+            if pts is None or not np.isfinite(pts[0]).all():
+                raise AssertionError('the trained landmark net predicts no '
+                                     'finite points')
+        finally:
+            landmarks.unload_landmark_net()
+        out['run_landmark'] = {'wall_ms': wall, 'checkpoint_step': step,
+                               'held_out': {k: float(v)
+                                            for k, v in ev.items()}}
+    log(f'[train] entry points on cuda:0, 3 steps each, checkpoints read '
+        f'back equal: run_shape (its pool) {out["run_shape"]["wall_ms"]:.1f}'
+        f' ms, run_bisenet --synthetic {out["run_bisenet"]["wall_ms"]:.1f} '
+        f'ms, run_landmark (pool 256) {out["run_landmark"]["wall_ms"]:.1f} '
+        f'ms, each with its set-up; the landmark checkpoint loaded by '
+        f'load_landmark_net and predicting finite points ({smi})')
+    return out
+
+
+def phase_training(smi: str):
+    """The training slice: (d) the warp pool, whose warps launch K2, (e)
+    the shape trainer on it, (a) colour/texture, (b) predictors, (f) the
+    face parser, (g) the landmark regressor, (c) and (h) the entry points.
+    Timed with cuDNN's defaults, as the entry points run; the checks run
+    with deterministic cuDNN algorithms (deterministic)."""
+    import tempfile
+    reset_launches()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, shape_batches, rec['warp_pool'] = phase_train_pool(tmp, smi)
+        rec['shape'] = phase_train_shape(shape_batches, smi)
+        del shape_batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec['color_texture'] = phase_train_ct(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec['predictors'] = phase_train_predictors(smi)
+        rec['bisenet'] = phase_train_bisenet(smi)
+        rec['landmark'] = phase_train_landmark(smi)
+        rec['run_color_texture'] = phase_train_script(smi)
+        rec['entry_points'] = phase_train_entry_points(root, smi)
+    return read_launches('training', 0, POOL_WARPS), rec
 
 
 def main() -> int:
@@ -2096,8 +2464,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 9. the training slice: no kernel of it is hand-written; both counts
-    # are set to 0 before it and must read 0 after it
+    # 9. the training slice: both counts set to 0 before it and read after
+    # it; the warp pool launches K2 once a warp
     t_launches, training = phase_training(smi)
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
@@ -2107,7 +2475,8 @@ def main() -> int:
         'source': 'ctrlhair_tpu_torch/csrc/masked_cg.cu',
         'replaces': 'ctrlhair_tpu/ops/poisson_pallas.py:33',
         'launches': launches + b_launches['masked_cg']
-        + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values()),
+        + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values())
+        + t_launches['masked_cg'],
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
                              'deployment': d_launches['masked_cg'],
@@ -2119,7 +2488,8 @@ def main() -> int:
         'source': 'ctrlhair_tpu_torch/csrc/raster_uv.cu',
         'replaces': 'ctrlhair_tpu/ops/raster_pallas.py:146',
         'launches': raster_launches + b_launches['raster_uv']
-        + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values()),
+        + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values())
+        + t_launches['raster_uv'],
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
                              'deployment': d_launches['raster_uv'],

@@ -14,7 +14,10 @@
 #     generator's, discriminator's or model's variables and the running
 #     statistics are picked out of it, the optimiser state left behind.
 # The shape trainer's `geo_head` (training/shape_trainer.py) rides in its
-# generator tree and has no counterpart in the editor: it is dropped.
+# generator tree and has no counterpart in the editor: it is dropped.  So
+# are the face parser's two auxiliary heads (`conv_out16`, `conv_out32`,
+# training/bisenet_trainer.py), which flax's apply of the inference model
+# ignores and the editor's BiSeNet does not build.
 # bfloat16 leaves arrive as float32 (flax_msgpack widens them).  Each family
 # goes through convert.from_flax's layout rules into its submodule with
 # load_state_dict(strict=True): every key of the family must be present and
@@ -55,6 +58,18 @@ def _gan_state(tree) -> bool:
                     for k in ('gen', 'dis')))
 
 
+# training-only subtrees of a family's variables, by family
+TRAIN_ONLY = {'shape': ('geo_head',),
+              'bisenet': ('conv_out16', 'conv_out32')}
+
+
+def _inference(family: str, variables: Mapping) -> Dict[str, Any]:
+    """A family's variables without its training-only subtrees."""
+    drop = TRAIN_ONLY.get(family, ())
+    return {col: {k: v for k, v in sub.items() if k not in drop}
+            for col, sub in variables.items()}
+
+
 def pick_variables(family: str, tree) -> Dict[str, Any]:
     """Decoded checkpoint -> {editor family: variables dict}."""
     if not isinstance(tree, Mapping):
@@ -74,18 +89,17 @@ def pick_variables(family: str, tree) -> Dict[str, Any]:
         else:
             gen = None
         if _is_variables(gen):
-            params = {k: v for k, v in gen['params'].items()
-                      if k != 'geo_head'}
-            return {'shape': _variables(params, gen.get('batch_stats'))}
+            return {'shape': _inference('shape', _variables(
+                gen['params'], gen.get('batch_stats')))}
     elif _is_variables(tree):              # editor-shaped deployment
-        return {family: tree}
+        return {family: _inference(family, tree)}
     elif family == 'sean':
         if {'step', 'gen', 'gen_stats'} <= keys:
             return {'sean': _variables(tree['gen']['params']['params'],
                                        tree['gen_stats'])}
     elif {'step', 'model', 'stats'} <= keys:     # predictors, BiSeNet
-        return {family: _variables(tree['model']['params']['params'],
-                                   tree['stats'])}
+        return {family: _inference(family, _variables(
+            tree['model']['params']['params'], tree['stats']))}
     raise ValueError(f'{family}: checkpoint keys {sorted(map(str, keys))} '
                      'match no checkpoint contract')
 
@@ -191,7 +205,7 @@ def load_reference_params(editor, *,
         return bool(path) and os.path.exists(path)
 
     def put(family, variables, path):
-        _load_family(editor, family, variables)
+        _load_family(editor, family, _inference(family, variables))
         loaded[family] = path
 
     if exists(sean_path):

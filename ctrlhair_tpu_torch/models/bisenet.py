@@ -1,9 +1,14 @@
 # BiSeNet face parser: ResNet-18 context path, attention refinement, feature
 # fusion, 19-class head upsampled bilinearly with align_corners=True.
 #
-# Port of ctrlhair_tpu/models/bisenet.py (inference, main head only; the two
-# auxiliary training heads are not ported).  NCHW inside; the public call
-# takes and returns NHWC, as the JAX twin does.
+# Port of ctrlhair_tpu/models/bisenet.py.  NCHW inside; the public call
+# takes and returns NHWC, as the JAX twin does.  `return_aux=True` builds
+# the two auxiliary supervision heads of training (conv_out16 on the 1/8
+# feature after conv_head16, conv_out32 on the 1/16 feature after
+# conv_head32), upsampled bilinearly to the input as the main head is; the
+# inference model builds neither, so its weights are the editor's.
+# `train=True` puts every BatchNorm on batch statistics with flax's running
+# update (models/layers.RunningBatchNorm; layers.set_train flips it).
 
 from __future__ import annotations
 
@@ -12,12 +17,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ctrlhair_tpu_torch.config import BiSeNetConfig
-from ctrlhair_tpu_torch.models.layers import Conv, RunningBatchNorm
+from ctrlhair_tpu_torch.models.layers import Conv, RunningBatchNorm, set_train
 from ctrlhair_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 
 def _bn(features, dtype):
     return RunningBatchNorm(features, affine=True, dtype=dtype)
+
+
+def _upsample(x: torch.Tensor, hw) -> torch.Tensor:
+    return resize_bilinear(x.float(), hw, align_corners=True).permute(
+        0, 2, 3, 1)
 
 
 class ConvBNReLU(nn.Module):
@@ -124,8 +134,10 @@ class BiSeNetOutput(nn.Module):
 
 
 class BiSeNet(nn.Module):
-    def __init__(self, cfg: BiSeNetConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: BiSeNetConfig, dtype: torch.dtype = torch.float32,
+                 train: bool = False, return_aux: bool = False):
         super().__init__()
+        self.return_aux = return_aux
         self.resnet = ResNet18(cfg.blocks_per_stage, dtype=dtype)
         self.conv_avg = ConvBNReLU(512, 128, 1, 1, 0, dtype=dtype)
         self.arm32 = AttentionRefinement(512, 128, dtype=dtype)
@@ -134,10 +146,16 @@ class BiSeNet(nn.Module):
         self.conv_head16 = ConvBNReLU(128, 128, 3, 1, 1, dtype=dtype)
         self.ffm = FeatureFusion(256, 256, dtype=dtype)
         self.conv_out = BiSeNetOutput(256, 256, cfg.n_classes, dtype=dtype)
+        if return_aux:
+            self.conv_out16 = BiSeNetOutput(128, 64, cfg.n_classes,
+                                            dtype=dtype)
+            self.conv_out32 = BiSeNetOutput(128, 64, cfg.n_classes,
+                                            dtype=dtype)
+        set_train(self, train)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         """x [N,H,W,3] ImageNet-normalised -> [N,H,W,n_classes] float32
-        main-head logits."""
+        main-head logits, or (main, aux16, aux32) with return_aux."""
         h, w = x.shape[1:3]
         feat8, feat16, feat32 = self.resnet(x.permute(0, 3, 1, 2))
         avg = self.conv_avg(feat32.mean(dim=(2, 3), keepdim=True))
@@ -146,9 +164,11 @@ class BiSeNet(nn.Module):
         f16 = self.arm16(feat16) + f32_up
         f16_up = self.conv_head16(resize_nearest(f16, feat8.shape[2:]))
         fuse = self.ffm(feat8, f16_up)
-        out = self.conv_out(fuse).float()
-        out = resize_bilinear(out, (h, w), align_corners=True)
-        return out.permute(0, 2, 3, 1)
+        out = _upsample(self.conv_out(fuse), (h, w))
+        if self.return_aux:
+            return (out, _upsample(self.conv_out16(f16_up), (h, w)),
+                    _upsample(self.conv_out32(f32_up), (h, w)))
+        return out
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

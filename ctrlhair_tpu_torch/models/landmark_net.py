@@ -27,14 +27,20 @@ from ctrlhair_tpu_torch.models.layers import MLP, ConvBlock
 
 @dataclasses.dataclass(frozen=True)
 class LandmarkNetConfig:
-    """Config for the landmark regressor (the inference fields of the JAX
-    package's LandmarkNetConfig)."""
+    """Config for the landmark regressor (the JAX package's
+    LandmarkNetConfig)."""
     input_size: int = 128      # images are resized to this before the net
     n_points: int = 81         # dlib 68 + 13 forehead points
     base_channels: int = 24
     stages: int = 4            # stride-2 stages after the stem
     hidden_dim: int = 256
-    norm: str = 'in'
+    norm: str = 'in'           # stateless: no running statistics
+    # training (training/landmark_trainer.py)
+    total_batch_size: int = 64
+    total_step: int = 3000
+    lr: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
     offset_range: float = 0.5  # max offset from the template
 
 

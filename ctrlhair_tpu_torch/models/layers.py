@@ -12,6 +12,10 @@
 # statistics and updates its running ones by flax's rule, and LinearBlock
 # applies dropout.  torch's own training flag is left alone, so eval() and
 # train() change nothing here.  Spectral normalisation is not ported yet.
+# The norms compute their statistics in float32, or in float64 for float64
+# activations (flax's promote_types(dtype, float32));
+# `set_compute_dtype` switches a built model's activations to another
+# dtype, as building it with `dtype=` does.
 
 from __future__ import annotations
 
@@ -173,6 +177,12 @@ class TorchConvTranspose(nn.Module):
         return self.conv(x)
 
 
+def _promoted(x: torch.Tensor) -> torch.Tensor:
+    """x in the dtype the norms take their statistics in: float32, or
+    float64 for float64 activations."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class InstanceNorm(nn.Module):
     """InstanceNorm2d(affine=False), eps 1e-5; statistics in float32."""
 
@@ -182,7 +192,7 @@ class InstanceNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        x32 = x.float()
+        x32 = _promoted(x)
         var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True,
                                    correction=0)
         return ((x32 - mean) * torch.rsqrt(var + self.eps)).to(self.dtype)
@@ -210,7 +220,7 @@ class SampleLayerNorm(nn.Module):
             self.beta.zero_()
 
     def forward(self, x):
-        x32 = x.float()
+        x32 = _promoted(x)
         dims = tuple(range(1, x.dim()))
         n = x[0].numel()
         mean = x32.mean(dim=dims, keepdim=True)
@@ -232,7 +242,8 @@ class RunningBatchNorm(nn.Module):
     (E[x^2] - E[x]^2, floored at 0, as flax's fast variance) and updates
     the running ones in place as flax does, running = 0.9 * running +
     0.1 * batch, the variance biased too (F.batch_norm would take the
-    unbiased one).  Normalises in float32 and returns the compute dtype.
+    unbiased one).  Normalises in float32 (in float64 for float64 inputs:
+    flax's promote_types(dtype, float32)) and returns the compute dtype.
     `affine=False` is the parameter-free norm of ACE."""
 
     def __init__(self, features: int, affine: bool = True, eps: float = 1e-5,
@@ -259,7 +270,7 @@ class RunningBatchNorm(nn.Module):
 
     def forward(self, x):
         shape = _channel_shape(x)
-        x32 = x.float()
+        x32 = _promoted(x)
         if self.train_mode:
             dims = (0,) + tuple(range(2, x.dim()))
             mean = x32.mean(dim=dims)
@@ -310,8 +321,9 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias,
-                            self.eps).to(self.dtype)
+        xp = _promoted(x)
+        return F.layer_norm(xp, x.shape[-1:], self.weight.to(xp.dtype),
+                            self.bias.to(xp.dtype), self.eps).to(self.dtype)
 
 
 def make_norm(norm: str, features: int, *,
@@ -442,6 +454,16 @@ def keep_masks_like(n: int, width: int, layers: int, rate: float,
     return [torch.rand((n, width), generator=generator,
                        device=generator.device) < 1.0 - rate
             for _ in range(layers)]
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Run every layer under `module` in `dtype` (parameters keep theirs),
+    as building it with `dtype=` does."""
+    for m in module.modules():
+        if hasattr(m, 'compute_dtype'):
+            m.compute_dtype = dtype
+        if isinstance(getattr(m, 'dtype', None), torch.dtype):
+            m.dtype = dtype
 
 
 def set_train(module: nn.Module, train: bool) -> None:

@@ -1,10 +1,17 @@
 # Shape branch: the hair-mask VAE (encoders and decoders).
 #
-# Port of ctrlhair_tpu/models/shape.py (inference; the two discriminators
-# are training-only and not ported).  Convs run NCHW; the flatten before
-# each encoder head and the reshape after each decoder's input layer use
-# the JAX package's NHWC order, so dense weights carry across unchanged.
-# Public masks are NHWC: hair [N,H,W,1], face [N,H,W,18], decode [N,H,W,19].
+# Port of ctrlhair_tpu/models/shape.py, with the two discriminators of the
+# shape trainer (ShapeDiscriminator, a MaskEncoder under the flax name
+# `dis`; ShapeDiscriminatorNoise, an MLP under `net`).  Convs run NCHW; the
+# flatten before each encoder head and the reshape after each decoder's
+# input layer use the JAX package's NHWC order, so dense weights carry
+# across unchanged.  Public masks are NHWC: hair [N,H,W,1], face
+# [N,H,W,18], decode [N,H,W,19].  Train mode changes nothing in these
+# models: the generator's norm ('ln', SampleLayerNorm) keeps no statistics
+# and the discriminators have none ('none'), so the JAX modules'
+# `train=True` has no counterpart here.  The VAE's sampling takes its
+# noise from the caller (training/shape_trainer.py); `encode_hair` returns
+# the mean as the sample, as the JAX twin does without an rng.
 
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import torch.nn as nn
 
 from ctrlhair_tpu_torch.config import ShapeConfig
 from ctrlhair_tpu_torch.constants import HAIR_IDX
-from ctrlhair_tpu_torch.models.layers import ConvBlock, LinearBlock
+from ctrlhair_tpu_torch.models.layers import MLP, ConvBlock, LinearBlock
 from ctrlhair_tpu_torch.ops.resize import upsample2x_nearest
 
 
@@ -127,12 +134,18 @@ class ShapeGenerator(nn.Module):
     def encode_face(self, face: torch.Tensor) -> torch.Tensor:
         return self.face_encoder(face)[0]
 
+    def decode_hair_logit(self, hair_code: torch.Tensor,
+                          face_code: torch.Tensor) -> torch.Tensor:
+        """-> hair_logit [N,H,W,1] (the hair half of decode_logits)."""
+        return self.hair_decoder(torch.cat([face_code, hair_code], -1)
+                                 ).permute(0, 2, 3, 1)
+
     def decode_logits(self, hair_code: torch.Tensor,
                       face_code: torch.Tensor):
         """-> (hair_logit [N,H,W,1], face_logit [N,H,W,18])."""
-        hair_logit = self.hair_decoder(torch.cat([face_code, hair_code], -1))
         face_logit = self.face_decoder(face_code)
-        return hair_logit.permute(0, 2, 3, 1), face_logit.permute(0, 2, 3, 1)
+        return (self.decode_hair_logit(hair_code, face_code),
+                face_logit.permute(0, 2, 3, 1))
 
     def merge_logits(self, hair_logit: torch.Tensor,
                      face_logit: torch.Tensor) -> torch.Tensor:
@@ -144,3 +157,29 @@ class ShapeGenerator(nn.Module):
                face_code: torch.Tensor) -> torch.Tensor:
         """codes -> [N,H,W,19] soft mask."""
         return self.merge_logits(*self.decode_logits(hair_code, face_code))
+
+
+class ShapeDiscriminator(nn.Module):
+    """19-channel mask [N,H,W,19] -> one logit [N,1]."""
+
+    def __init__(self, cfg: ShapeConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dis = MaskEncoder(cfg, 19, 1, cfg.d_norm, vae=False,
+                               hidden_in_channel=cfg.d_hidden_in_channel,
+                               dtype=dtype)
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        return self.dis(mask)[0]
+
+
+class ShapeDiscriminatorNoise(nn.Module):
+    """The latent-prior discriminator on hair codes [N,hair_dim] -> [N,1]."""
+
+    def __init__(self, cfg: ShapeConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.net = MLP(cfg.hair_dim, cfg.d_hidden_dim,
+                       cfg.d_noise_hidden_layer_num, 1, norm='none',
+                       activation='lrelu', dtype=dtype)
+
+    def forward(self, code: torch.Tensor) -> torch.Tensor:
+        return self.net(code)

@@ -219,7 +219,7 @@ def _cluster_launch(index: int, b_eff, unk, x0,
             n, c, h, w, iterations, clusters, plan.rows, plan.working,
             plan.threads, stream)
         _check(lib, err, 'cluster launch')
-    MASKED_CG.launches += 1
+    MASKED_CG.count_launch()
     ROUTE_LAUNCHES['cluster'] += 1
     return x
 
@@ -245,7 +245,7 @@ def _grid_launch(index: int, b_eff, unk, x0, iterations: int) -> torch.Tensor:
             b_eff.data_ptr(), unk.data_ptr(), x0.data_ptr(), x.data_ptr(),
             work.data_ptr(), n, c, h, w, iterations, grid, stream)
         _check(lib, err, 'grid launch')
-    MASKED_CG.launches += 1
+    MASKED_CG.count_launch()
     ROUTE_LAUNCHES['grid'] += 1
     return x
 

@@ -209,7 +209,7 @@ def rasterize_binned_cuda(rows: torch.Tensor, offsets: torch.Tensor,
             out.data_ptr(), rows.shape[0], indices.shape[0], height, width,
             grid_h, grid_w, stream)
         _check(lib, err, 'launch')
-    RASTER_UV.launches += 1
+    RASTER_UV.count_launch()
     return out
 
 

@@ -378,6 +378,31 @@ def hair_mask_transfer_warp(hair_parsing, face_parsing,
     return out.numpy() if from_numpy else out
 
 
+def warp_for_image_with_idx(catalog, landmark_dict, hair_key: str,
+                            face_key: str, use_arap: bool = True,
+                            device=None) -> torch.Tensor:
+    """Catalogue-driven warp for preprocessed datasets (ref:
+    wrap_codes/mask_adaptor.py:146-172): both label maps read from the
+    catalogue, resized by nearest to 512 and put on `device` (None: the
+    first CUDA device, where the warp takes the kernel route), landmarks
+    from the precomputed landmark81 dict.  Returns the composite parsing,
+    an int32 [512,512] tensor on `device`."""
+    from ctrlhair_tpu_torch.ops.resize import resize_nearest
+    from ctrlhair_tpu_torch.pipeline.editor import resolve_device
+    from ctrlhair_tpu_torch.utils.image import read_png
+
+    device = resolve_device(device)
+
+    def parsing(key):
+        label = read_png(catalog.label_path(key)).astype(np.int32)
+        return resize_nearest(torch.from_numpy(label), (512, 512)).to(device)
+
+    return hair_mask_transfer_warp(
+        parsing(hair_key), parsing(face_key),
+        np.asarray(landmark_dict[hair_key]),
+        np.asarray(landmark_dict[face_key]), use_arap=use_arap)
+
+
 def _crop_for_warp(img: np.ndarray, editor, crop_size: int) -> np.ndarray:
     """FFHQ-align one raw photo at `crop_size` before shape transfer
     (ref: wrap_codes/mask_adaptor.py:186-200 crops BOTH images at 1024).

@@ -43,14 +43,8 @@ from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.predictor_trainer import (
     step_generator, to_device)
 from ctrlhair_tpu_torch.training.train_state import (
-    GANTrainState, ModelOpt, adam, grads_finite, safe_apply_updates)
-
-
-def _grads(loss: torch.Tensor, params, retain: bool = False):
-    grads = torch.autograd.grad(loss, params, retain_graph=retain,
-                                allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
+    GANTrainState, ModelOpt, adam, grads_finite, param_grads,
+    safe_apply_updates)
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -208,8 +202,8 @@ class ColorTextureTrainer:
                                                           batch)
         g_total = sch.total(lg, step)
 
-        d_grads = _grads(d_total, state.dis.params(), retain=True)
-        g_grads = _grads(g_total, state.gen.params())
+        d_grads = param_grads(d_total, state.dis.params(), retain=True)
+        g_grads = param_grads(g_total, state.gen.params())
 
         # latent-prior discriminator step
         real_noise = torch.cat([batch['noise'], batch['noise_curliness']],
@@ -229,7 +223,7 @@ class ColorTextureTrainer:
             lz['lambda_gp_noise'] = L.wgan_gradient_penalty(
                 adv_fn, real_noise, fake_noise, draws['alpha_gp_noise'])
             dz_total = dz_total + cfg.lambda_gp * lz['lambda_gp_noise']
-        dz_grads = _grads(dz_total, state.dis_noise.params())
+        dz_grads = param_grads(dz_total, state.dis_noise.params())
 
         finite = grads_finite(d_grads) & grads_finite(g_grads) & \
             grads_finite(dz_grads)

@@ -37,10 +37,14 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of one training step's draws."""
+    return (seed * 0x9E3779B1 + step) % (1 << 63)
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The host generator of one training step's draws."""
-    return torch.Generator().manual_seed(
-        (seed * 0x9E3779B1 + step) % (1 << 63))
+    return torch.Generator().manual_seed(step_seed(seed, step))
 
 
 class PredictorTrainer:

@@ -1,25 +1,37 @@
-# Training state: Adam with a finite guard, and the state containers.
+# Training state: Adam and SGD with a finite guard, and the state
+# containers.
 #
 # Port of ctrlhair_tpu/training/train_state.py.  The JAX package applies
-# optax.adam updates that are skipped whole when any gradient of the step is
-# non-finite.  torch.optim.Adam cannot be gated that way: it advances its
-# own state['step'] inside step(), on the host.  So the update is written
-# out by hand, as optax computes it (mu = (1-b1) g + b1 mu, nu likewise on
-# g^2, bias corrections 1 - b^count in float32, mu_hat / (sqrt(nu_hat) +
-# 1e-8), times -lr), and every new value passes through
-# torch.where(finite, new, old): parameters, both moments and the count.
-# The flag stays on the device, so the guard costs no host read.
+# optax updates that are skipped whole when any gradient of the step is
+# non-finite.  torch.optim cannot be gated that way: its optimisers advance
+# their own state inside step(), on the host.  So each update is written
+# out by hand, as optax computes it, and every new value passes through
+# torch.where(finite, new, old).  The flag stays on the device, so the
+# guard costs no host read.
+#   Adam  optax.adam: mu = (1-b1) g + b1 mu, nu likewise on g^2, bias
+#         corrections 1 - b^count in float32, mu_hat / (sqrt(nu_hat) +
+#         1e-8), times -lr; parameters, both moments and the count gated.
+#   SGD   optax.chain(add_decayed_weights(wd), sgd(lr, momentum)), the
+#         face parser's optimiser: g' = g + wd p, trace = g' + m trace
+#         (trace starts at 0, so the first step's trace is g'),
+#         p -= lr trace; parameters and the trace gated.
 #
 # The containers hold torch modules and their optimiser state.  to_tree()
 # writes flax's state-dict layout of the JAX containers
 # (flax.serialization.to_state_dict of ModelOpt / GANTrainState /
-# PredictorTrainState) and load_tree() reads it, so a checkpoint crosses
-# between the packages both ways:
+# PredictorTrainState / BiSeNetTrainState / LandmarkTrainState) and
+# load_tree() reads it, so a checkpoint crosses between the packages both
+# ways:
 #   ModelOpt            {'params': variables, 'opt_state': {'0': {'count',
 #                        'mu', 'nu'}, '1': {} or, for a {step: lr}
 #                        schedule, {'count'}}}
+#   SGDModelOpt         {'params': variables, 'opt_state': {'0': {},
+#                        '1': {'0': {'trace'}, '1': {}}}} (the outer
+#                        chain's empty decay state, then optax.sgd's own
+#                        chain of the trace and the empty lr scale)
 #   GANTrainState       {'step', 'gen', 'dis', 'dis_noise'}
-#   PredictorTrainState {'step', 'model', 'stats'}
+#   PredictorTrainState {'step', 'model', 'stats'} (also the face parser's)
+#   LandmarkTrainState  {'step', 'model'}
 # `step` and the counts are int32 0-d arrays there; here `step` is a Python
 # int (every step advances it, finite or not, so the host always knows it)
 # and the count a 0-d int32 tensor on the module's device.
@@ -130,6 +142,70 @@ class ModelOpt:
                                   dtype=torch.int32, device=device)
 
 
+class SGD:
+    """optax.chain(add_decayed_weights(weight_decay), sgd(lr,
+    momentum=momentum))."""
+
+    def __init__(self, lr: float, momentum: float = 0.9,
+                 weight_decay: float = 5e-4):
+        self.lr = float(lr)
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+
+
+class SGDModelOpt(ModelOpt):
+    """A module, its SGD and SGD's momentum trace by parameter name."""
+
+    def __init__(self, module: nn.Module, tx: SGD, family: str):
+        self.module = module
+        self.tx = tx
+        self.family = family
+        self.trace = {k: torch.zeros_like(p)
+                      for k, p in module.named_parameters()}
+
+    def to_tree(self) -> Dict[str, Any]:
+        params = dict(self.module.named_parameters())
+        return {'params': self._params_tree(params),
+                'opt_state': {'0': {},
+                              '1': {'0': {'trace': self._params_tree(
+                                  self.trace)}, '1': {}}}}
+
+    def load_tree(self, tree: Mapping[str, Any]) -> None:
+        """Restore from an SGD ModelOpt state-dict tree; parameters
+        strictly, the trace as it is."""
+        params = self._named(tree['params'])
+        self.module.load_state_dict(
+            {**params, **{k: v for k, v in self.module.state_dict().items()
+                          if k not in params}}, strict=True)
+        values = self._named(tree['opt_state']['1']['0']['trace'])
+        if set(values) != set(self.trace):
+            raise ValueError(f'{self.family}: the SGD trace does not match '
+                             'the module\'s parameters')
+        with torch.no_grad():
+            for k, v in values.items():
+                self.trace[k].copy_(v.to(self.trace[k].device))
+
+
+@torch.no_grad()
+def _sgd_update(model: SGDModelOpt, grads: Sequence[torch.Tensor],
+                finite: torch.Tensor) -> None:
+    tx = model.tx
+    for (name, p), g in zip(model.module.named_parameters(), grads):
+        trace = (g + tx.weight_decay * p) + tx.momentum * model.trace[name]
+        p.copy_(torch.where(finite, p + (-tx.lr) * trace, p))
+        model.trace[name].copy_(torch.where(finite, trace, model.trace[name]))
+
+
+def param_grads(loss: torch.Tensor, params, retain: bool = False
+                ) -> List[torch.Tensor]:
+    """d loss / d params, a zero tensor for a parameter the loss does not
+    reach (as jax.grad gives one)."""
+    grads = torch.autograd.grad(loss, params, retain_graph=retain,
+                                allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 def grads_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """One bool tensor: every gradient entry is finite."""
     return torch.stack([torch.isfinite(g).all() for g in grads]).all()
@@ -138,8 +214,12 @@ def grads_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def safe_apply_updates(model: ModelOpt, grads: Sequence[torch.Tensor],
                        finite: torch.Tensor) -> None:
-    """One Adam update of `model` in place when `finite`, else nothing
-    changes (parameters, mu, nu and count)."""
+    """One update of `model` in place when `finite`, else nothing changes:
+    Adam (parameters, mu, nu and count) or, for an SGDModelOpt, SGD with
+    momentum (parameters and trace)."""
+    if isinstance(model, SGDModelOpt):
+        _sgd_update(model, grads, finite)
+        return
     tx = model.tx
     count_inc = model.count + 1
     c = count_inc.float()
@@ -212,6 +292,23 @@ class PredictorTrainState:
             with torch.no_grad():
                 for k, b in batch_stats(self.model.module).items():
                     b.copy_(stats[k])
+        self.step = int(np.asarray(tree['step']))
+
+
+class LandmarkTrainState:
+    """step and the model (parameters and Adam); the landmark net keeps no
+    running statistics."""
+
+    def __init__(self, step: int, model: ModelOpt):
+        self.step = step
+        self.model = model
+
+    def to_tree(self) -> Dict[str, Any]:
+        return {'step': np.asarray(self.step, np.int32),
+                'model': self.model.to_tree()}
+
+    def load_tree(self, tree: Mapping[str, Any]) -> None:
+        self.model.load_tree(tree['model'])
         self.step = int(np.asarray(tree['step']))
 
 

@@ -102,7 +102,11 @@ class NativeLibrary:
     def lib(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
+                path = self.build()
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise RuntimeError(f'cannot load {path}: {e}') from e
                 self._declare(lib)
                 self._lib = lib
             return self._lib
@@ -118,8 +122,9 @@ class HostLibrary(NativeLibrary):
 class CudaKernel(NativeLibrary):
     """One hand-written kernel: its library, built by nvcc on first use from
     csrc/<name>.cu, and the count of its launches.  The wrapper that
-    launches it adds one to `launches` per launch, and nothing else touches
-    the count except a caller resetting it to 0."""
+    launches it adds one to `launches` per launch (count_launch: under a
+    lock, as threads may launch at once), and nothing else touches the
+    count except a caller resetting it to 0."""
 
     def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
                  extra_flags: Sequence[str] = ()):
@@ -127,6 +132,11 @@ class CudaKernel(NativeLibrary):
         self.source = self.sources[0]
         self.extra_flags = tuple(extra_flags)
         self.launches = 0
+        self._count_lock = threading.Lock()
+
+    def count_launch(self) -> None:
+        with self._count_lock:
+            self.launches += 1
 
     def command(self) -> Sequence[str]:
         return (nvcc_path(), *NVCC_FLAGS, *self.extra_flags)

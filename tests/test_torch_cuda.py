@@ -360,3 +360,121 @@ def test_predictor_train_step_on_card_matches_cpu(card):
         assert bool(m['finite'])
         trees.append(state.to_tree())
     _hold_step(trees[1], trees[0], init, {'model': cfg.lr})
+
+
+@pytest.mark.cuda
+def test_shape_train_step_on_card_matches_cpu(card):
+    """One shape-trainer step with every option on, on the card against the
+    CPU from the same state, batch and draws, held as _hold_step says."""
+    from ctrlhair_tpu_torch.training.shape_trainer import (
+        ShapeTrainer, synthetic_batch)
+    cfg = C.ShapeConfig(img_size=32, layer_num=3, max_channel=32,
+                        hidden_in_channel=8, d_hidden_in_channel=8,
+                        face_dim=64, d_hidden_dim=32, kl_free_bits=0.25,
+                        lambda_geo=30.0, lambda_info=1.0,
+                        disturb_real_batch_mask=True)
+    batch = synthetic_batch(torch.Generator().manual_seed(1), cfg, 4)
+    trees = []
+    for device in ('cpu', 'cuda'):
+        tr = ShapeTrainer(cfg, device=device)
+        state = tr.init_state(0)
+        if trees:
+            state.load_tree(init)
+        else:
+            init = state.to_tree()
+        state, m = tr.train_step(
+            state, {k: v.to(device) for k, v in batch.items()},
+            tr.draws(0, 4))
+        assert bool(m['finite']) and 'g/lambda_geo' in m
+        trees.append(state.to_tree())
+    _hold_step(trees[1], trees[0], init,
+               {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_dz})
+
+
+@pytest.mark.cuda
+def test_bisenet_train_step_on_card_matches_cpu(card):
+    """One face-parser step (OHEM on three heads, SGD, batch statistics) on
+    the card against the CPU: every leaf within 1e-4 of its scale."""
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    cfg = C.BiSeNetConfig(input_size=64)
+    g = torch.Generator().manual_seed(4)
+    batch = {'image': torch.randn((8, 64, 64, 3), generator=g),
+             'label': torch.randint(0, 19, (8, 64, 64), generator=g)}
+    trees = []
+    for device in ('cpu', 'cuda'):
+        tr = BiSeNetTrainer(cfg, device=device)
+        state = tr.init_state(0)
+        if trees:
+            state.load_tree(init)
+        else:
+            init = state.to_tree()
+        state, m = tr.train_step(
+            state, {k: v.to(device) for k, v in batch.items()})
+        assert bool(m['finite'])
+        trees.append(state.to_tree())
+    _hold_step(trees[1], trees[0], init, {})
+
+
+@pytest.mark.cuda
+def test_landmark_train_step_on_card_matches_cpu(card):
+    """One landmark-regressor step on the card against the CPU, held as
+    _hold_step says (the conv biases in front of an InstanceNorm have a
+    gradient of rounding noise)."""
+    from ctrlhair_tpu_torch.data.landmark_dataset import training_batch
+    from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
+    from ctrlhair_tpu_torch.training.landmark_trainer import LandmarkTrainer
+    cfg = LandmarkNetConfig()
+    batch = {k: torch.tensor(v) for k, v in training_batch(
+        np.random.default_rng(5), 16).items()}
+    trees = []
+    for device in ('cpu', 'cuda'):
+        tr = LandmarkTrainer(cfg, device=device)
+        state = tr.init_state(0)
+        if trees:
+            state.load_tree(init)
+        else:
+            init = state.to_tree()
+        state, m = tr.train_step(
+            state, {k: v.to(device) for k, v in batch.items()})
+        assert bool(m['finite'])
+        trees.append(state.to_tree())
+    _hold_step(trees[1], trees[0], init, {'model': cfg.lr})
+
+
+@pytest.mark.cuda
+def test_warp_pool_on_card_launches_the_kernel(card, tmp_path):
+    """generate_warp_pool on the card: one K2 launch per warp, each mask
+    equal to the same pair through the host route on >= 99.9% of labels."""
+    import os
+    from ctrlhair_tpu_torch.data.catalog import DataCatalog
+    from ctrlhair_tpu_torch.data.shape_dataset import generate_warp_pool
+    from ctrlhair_tpu_torch.ops.landmarks import estimate_landmarks_81
+    from ctrlhair_tpu_torch.utils.image import read_png, write_png
+    for ds in ('ffhq', 'CelebaMask_HQ'):
+        os.makedirs(tmp_path / ds / 'images_256')
+        os.makedirs(tmp_path / ds / 'label')
+        for i in range(3):
+            lab = np.ones((256, 256), np.uint8)
+            lab[20 + 8 * i:120, 50:200 - 10 * i] = 13
+            lab[120:220, 80:180] = 1
+            write_png(str(tmp_path / ds / 'label' / f'{i}.png'), lab)
+            write_png(str(tmp_path / ds / 'images_256' / f'{i}.png'),
+                      np.zeros((8, 8, 3), np.uint8))
+    cat = DataCatalog(str(tmp_path), ['ffhq', 'CelebaMask_HQ'],
+                      validity_check=False)
+    before = rp.RASTER_UV.launches
+    out = str(tmp_path / 'pool')
+    assert generate_warp_pool(cat, out, 4, num_threads=2) == 4
+    torch.cuda.synchronize()
+    assert rp.RASTER_UV.launches == before + 4
+    for name in sorted(os.listdir(out)):
+        hair_key, face_key = ('___'.join(name.split('___')[:2]),
+                              '___'.join(name.split('___')[2:4]))
+        # the 256 px labels at the warp's 512 px (nearest: each pixel
+        # twice)
+        big = [np.asarray(read_png(cat.label_path(k)), np.int32).repeat(
+            2, 0).repeat(2, 1) for k in (hair_key, face_key)]
+        host = warp.hair_mask_transfer_warp(
+            *big, estimate_landmarks_81(big[0]), estimate_landmarks_81(
+                big[1]), raster='host')
+        assert (read_png(os.path.join(out, name)) == host).mean() >= 0.999

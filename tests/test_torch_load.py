@@ -192,3 +192,47 @@ def test_mismatched_checkpoints_raise(tmp_path, trained_root, tiny_editor):
     assert dirs['rgb_predictor_dir'].endswith('rgb_predictor/checkpoints')
     assert dirs['curliness_predictor_dir'].endswith(
         'curliness_classifier/checkpoints')
+
+
+def test_trained_bisenet_checkpoints_load_without_aux_heads(tmp_path,
+                                                            tiny_editor):
+    """A face-parser train state carries the auxiliary heads conv_out16 /
+    conv_out32, which the editor's BiSeNet does not build (flax's apply of
+    the inference model ignores them).  The port's checkpoint and JAX's
+    both load into HairEditor(device='cpu'), and the parse equals the one
+    from the same weights loaded without the heads."""
+    from ctrlhair_tpu.training import bisenet_trainer as jbt
+    from ctrlhair_tpu_torch.convert import load_variables
+    from ctrlhair_tpu_torch.convert.load import pick_variables
+    from ctrlhair_tpu_torch.training import bisenet_trainer as pbt
+    from ctrlhair_tpu_torch.utils import checkpoint as pckpt
+    cfg = port_config(tiny_editor.cfg)
+    jstate = jbt.BiSeNetTrainer(tiny_editor.cfg.bisenet).init_state(
+        jax.random.PRNGKey(5))
+    jstate = jstate.replace(model=jstate.model.replace(
+        params=randomised(jstate.model.params, 9)),
+        stats=jax.tree_util.tree_map(np.abs, randomised(jstate.stats, 10)))
+    save_checkpoint(str(tmp_path / 'jax'), host(jstate), 4)
+    pstate = pbt.BiSeNetTrainer(cfg.bisenet, device='cpu').init_state(6)
+    pckpt.save_checkpoint(str(tmp_path / 'port'), pstate.to_tree(), 5)
+    img = np.random.default_rng(0).integers(0, 256, (1, 96, 96, 3),
+                                            dtype=np.uint8)
+    ed, ref = HairEditor(cfg, device='cpu'), HairEditor(cfg, device='cpu')
+    for name, step in (('jax', 4), ('port', 5)):
+        d = str(tmp_path / name)
+        tree, _ = pckpt.load_checkpoint(d)
+        heads = tree['model']['params']['params']
+        assert {'conv_out16', 'conv_out32'} <= set(heads)
+        assert load_native_params(ed, bisenet_dir=d) == {'bisenet': step}
+        aux = ('conv_out16', 'conv_out32')
+        variables = {'params': {k: v for k, v in heads.items()
+                                if k not in aux},
+                     'batch_stats': {k: v for k, v in tree['stats'].items()
+                                     if k not in aux}}
+        load_variables(ref.bisenet, 'bisenet', variables)
+        assert pick_variables('bisenet', tree)['bisenet'].keys() == \
+            variables.keys()
+        with torch.no_grad():
+            assert torch.equal(ed.parse(img), ref.parse(img))
+        got, want = ed.bisenet.state_dict(), ref.bisenet.state_dict()
+        assert all(torch.equal(got[k], want[k]) for k in want)

@@ -182,3 +182,87 @@ def test_ct_modules_load_and_write_flax_trees(tiny_editor):
         float(pct.SubspaceLayer.orthogonal_regularizer(torch.tensor(u))),
         float(jct.SubspaceLayer.orthogonal_regularizer(jnp.asarray(u))),
         rtol=1e-6)
+
+
+def fake_bisenet_sd(rng, n_classes=19):
+    """A reference face-parsing state dict (face_parsing/model.py layout):
+    the ResNet-18 context path, both attention-refinement modules, the
+    feature fusion, and the main and both auxiliary heads."""
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f'{name}.weight'] = (rng.standard_normal((cout, cin, k, k))
+                                * 0.1).astype(np.float32)
+
+    def bn(name, c):
+        sd[f'{name}.weight'] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f'{name}.bias'] = rng.standard_normal(c).astype(np.float32)
+        sd[f'{name}.running_mean'] = rng.standard_normal(c).astype(
+            np.float32)
+        sd[f'{name}.running_var'] = rng.uniform(0.5, 2, c).astype(np.float32)
+        sd[f'{name}.num_batches_tracked'] = np.asarray(7, np.int64)
+
+    def cbr(name, cin, cout, k):
+        conv(f'{name}.conv', cout, cin, k)
+        bn(f'{name}.bn', cout)
+
+    conv('cp.resnet.conv1', 64, 3, 7)
+    bn('cp.resnet.bn1', 64)
+    cin = 64
+    for li, (c, stride) in enumerate([(64, 1), (128, 2), (256, 2),
+                                      (512, 2)]):
+        for j in range(2):
+            src = f'cp.resnet.layer{li + 1}.{j}'
+            conv(f'{src}.conv1', c, cin, 3)
+            bn(f'{src}.bn1', c)
+            conv(f'{src}.conv2', c, c, 3)
+            bn(f'{src}.bn2', c)
+            if j == 0 and (cin != c or stride != 1):
+                conv(f'{src}.downsample.0', c, cin, 1)
+                bn(f'{src}.downsample.1', c)
+            cin = c
+    for arm, c in (('cp.arm16', 256), ('cp.arm32', 512)):
+        cbr(f'{arm}.conv', c, 128, 3)
+        conv(f'{arm}.conv_atten', 128, 128, 1)
+        bn(f'{arm}.bn_atten', 128)
+    cbr('cp.conv_head32', 128, 128, 3)
+    cbr('cp.conv_head16', 128, 128, 3)
+    cbr('cp.conv_avg', 512, 128, 1)
+    cbr('ffm.convblk', 256, 256, 1)
+    conv('ffm.conv1', 64, 256, 1)
+    conv('ffm.conv2', 256, 64, 1)
+    for head, cin, mid in (('conv_out', 256, 256), ('conv_out16', 128, 64),
+                           ('conv_out32', 128, 64)):
+        cbr(f'{head}.conv', cin, mid, 3)
+        conv(f'{head}.conv_out', n_classes, mid, 1)
+    return sd
+
+
+def test_bisenet_reference_import(tiny_editor, tmp_path):
+    """The reference parser's state dict, auxiliary heads included: the
+    port's converter equals JAX's convert_bisenet exactly, and
+    load_reference_params puts it into the editor's BiSeNet (the heads,
+    which the editor does not build, dropped) as JAX's loads it."""
+    sd = fake_bisenet_sd(np.random.default_rng(4))
+    got = ti.convert_bisenet(sd)
+    want = jti.convert_bisenet(sd)
+    assert_same_tree(got, want)
+    assert {'conv_out16', 'conv_out32'} <= set(got['params'])
+    path = str(tmp_path / 'face_parsing_79999_iter.pth')
+    torch.save({'module.' + k: torch.tensor(v) for k, v in sd.items()},
+               path)
+    jed = copy.copy(tiny_editor)
+    jparams = jload.load_reference_params(jed, bisenet_path=path)
+    port = HairEditor(port_config(tiny_editor.cfg), device='cpu')
+    assert load_reference_params(port, bisenet_path=path) == {
+        'bisenet': path}
+    jb = jax.device_get(jparams['bisenet'])
+    wanted = from_flax({'bisenet': {
+        col: {k: v for k, v in sub.items()
+              if k not in ('conv_out16', 'conv_out32')}
+        for col, sub in jb.items()}})
+    state = port.state_dict()
+    assert set(wanted) == {k for k in state if k.startswith('bisenet.')}
+    for key, value in wanted.items():
+        torch.testing.assert_close(state[key], value, rtol=0, atol=0,
+                                   msg=key)

@@ -86,6 +86,51 @@ def assert_trees(got, ref, tol):
                                        err_msg=str(path))
 
 
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_trees_noise_exempt(got, ref, prev_got, prev_ref, lrs, b1, tol,
+                              exempt):
+    """assert_trees(got, ref, tol) for Adam-trained state trees (parts
+    {part: lr}, each a ModelOpt tree), with one exemption: an entry whose
+    gradient of this step is rounding noise (below 1e-5 of its leaf's
+    largest gradient on JAX's side, and not reproduced by the two sides to
+    1%; the gradient read off Adam's first moment, (mu - b1 mu_prev) /
+    (1 - b1)) is held instead to a move of at most 2 lr per step on both
+    sides, since Adam divides a gradient by its own magnitude.  `exempt`
+    accumulates {(part, leaf): mask} over the steps; returns the number of
+    exempted entries."""
+    for part in lrs:
+        grads = []
+        for now, prev in ((got, prev_got), (ref, prev_ref)):
+            mu, mu0 = (_leaves(t[part]['opt_state']['0']['mu'])
+                       for t in (now, prev))
+            grads.append({k: (mu[k] - b1 * mu0[k]) / (1 - b1) for k in mu})
+        for k, g_ref in grads[1].items():
+            mask = (np.abs(g_ref) <= 1e-5 * np.abs(g_ref).max()) & (
+                np.abs(grads[0][k] - g_ref) > 1e-2 * np.abs(g_ref))
+            if mask.any():
+                exempt[(part, k)] = exempt.get((part, k), False) | mask
+    got = jax.tree_util.tree_map(np.array, got)
+    ref = jax.tree_util.tree_map(np.array, ref)
+    for (part, key), mask in exempt.items():
+        for now, prev in ((got, prev_got), (ref, prev_ref)):
+            moved = np.abs(_leaves(now[part]['params'])[key]
+                           - _leaves(prev[part]['params'])[key])
+            assert moved[mask].max() <= 2 * lrs[part] + 1e-9, (part, key)
+        for tree in (got, ref):
+            flat, treedef = jax.tree_util.tree_flatten_with_path(
+                tree[part]['params'])
+            tree[part]['params'] = jax.tree_util.tree_unflatten(
+                treedef, [np.where(mask, 0.0, v)
+                          if jax.tree_util.keystr(p) == key else v
+                          for p, v in flat])
+    assert_trees(got, ref, tol)
+    return sum(int(m.sum()) for m in exempt.values())
+
+
 def assert_metrics(got, ref, tol):
     assert set(got) == set(ref)
     for k in ref:
