@@ -38,13 +38,25 @@ Drives the port's four paths at the full default PipelineConfig() width:
      256); (f) the face parser at BiSeNetConfig() (batch 16); (g) the
      landmark regressor at LandmarkNetConfig() (batch 64 from the port's
      renderer); five steps each, each held to the port's CPU step from the
-     same state, batch and draws, to a NaN batch that must leave the state
-     bit-identical, and to a save after step 2 whose resume must equal the
-     unbroken run bit for bit; then (c) run_color_texture.main([--synthetic,
+     same state, batch and draws (the shape, face-parser and landmark steps
+     on the batch's first two samples, in float64, and their float32 steps
+     against the CPU's float64 one), to a NaN batch that must leave the
+     state bit-identical, and to a save after step 2 whose resume must equal
+     the unbroken run bit for bit; then (c) run_color_texture.main([--synthetic,
      --steps 3]) and (h) run_shape.main on the pool, run_bisenet.main
      --synthetic and run_landmark.main, 3 steps each, in this process, each
      checkpoint read back by the port's reader, the landmark one loaded by
-     load_landmark_net.
+     load_landmark_net; (i) the SEAN trainer at SEANConfig() (crop 256, ngf
+     64, style 512, syncbatch, spectral norm) against the default two-scale
+     PatchGAN and a seeded random VGG19, batch 4, five steps timed at full
+     width, held at crop 64 to the CPU step (float64, and the float32
+     step against it), to a NaN batch (weights
+     bit-identical, the u vectors one power iteration on) and to a resume,
+     then run_sean.main on cuda:0, 3 steps; (j) a validation
+     canvas (the transfer matrix of samples/input.png and its mirror image)
+     and a data-prep pass over a folder made from them (crop, parse, SEAN
+     codes, colour statistics, median codes, landmarks) on Backend()'s
+     editor.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -160,15 +172,21 @@ def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel_name in e.key]
-    count = sum(e.count for e in events)
-    # the profiler may drop a record of a microsecond kernel: the mean is
-    # taken over the launches it saw, which must be some and no more than
-    # were made
+    # the profiler may drop records of a microsecond kernel, once all of a
+    # capture's (seen on the H100): a capture that kept none is taken again,
+    # twice at most; the mean is taken over the launches it saw, which must
+    # be some and no more than were made
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel_name in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            break
+        log(f'[profile] {kernel_name}: the profiler kept no launch of '
+            f'{reps}; capture {attempt + 2} of 3')
     if not 0 < count <= reps:
         raise AssertionError(f'profiler saw {count} launches of '
                              f'{kernel_name}, expected {reps}')
@@ -1459,6 +1477,12 @@ CT_BATCH, PREDICTOR_BATCH = 128, 256
 # larger of 1 and the leaf's largest magnitude (cuBLAS / cuDNN and the
 # CPU's BLAS sum in other orders)
 TRAIN_CARD_BAR = 1e-4
+# the card's float32 step, as the trainers train, against the CPU's float64
+# step of the held check: within this much, as held_to_cpu measures it.
+# The bar of tests/test_torch_cuda.py, which sets it between the float32
+# readings and those of the same steps with TF32 on (cuDNN's and cuBLAS's
+# 10-bit products) and holds TF32 outside it (readings in PERF.md)
+FLOAT32_CARD_BAR = 5e-3
 
 
 def cudnn_flags(**flags):
@@ -1482,11 +1506,6 @@ def cudnn_flags(**flags):
 # cuDNN held to deterministic algorithms, so that two runs of the same steps
 # (the resume check) can agree bit for bit
 deterministic = cudnn_flags(deterministic=True)
-# cuDNN off: the convolutions on PyTorch's own CUDA kernels (im2col and
-# cuBLAS GEMM), without cuDNN's FFT and Winograd algorithms, whose float32
-# error reached 1.4e-3 of a gradient's scale in the shape and face-parser
-# steps (measured); a reading beside the checks, not a setting of any path
-native_convs = cudnn_flags(enabled=False)
 # cudnn.benchmark on (cuDNN times its algorithms for each new shape and
 # keeps the fastest): a reading of what the convolutions could cost, not a
 # setting of any path
@@ -1578,7 +1597,8 @@ def train_steps(step_fn, state, batches, draws_fn=None):
     return state, metrics, times
 
 
-def check_metrics(metrics, ref, what, gate: bool = True):
+def check_metrics(metrics, ref, what, gate: bool = True,
+                  bar: float = TRAIN_CARD_BAR):
     worst = 0.0
     for k, v in ref.items():
         a, b = float(metrics[k]), float(v)
@@ -1587,9 +1607,9 @@ def check_metrics(metrics, ref, what, gate: bool = True):
                 raise AssertionError(f'{what}: finite {a} against {b}')
             continue
         worst = max(worst, abs(a - b) / max(1.0, abs(b)))
-    if gate and not worst <= TRAIN_CARD_BAR:
+    if gate and not worst <= bar:
         raise AssertionError(f'{what}: a loss differs by {worst:.3g} '
-                             f'(bar {TRAIN_CARD_BAR})')
+                             f'(bar {bar})')
     return worst
 
 
@@ -1623,7 +1643,8 @@ def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
     trainer, state, args = make_trainer(device)
     state.load_tree(init_tree)
     if dtype is not None:
-        for module in trained_modules(state):
+        frozen = [m for m in (getattr(trainer, 'vgg', None),) if m is not None]
+        for module in trained_modules(state) + frozen:
             set_compute_dtype(module, dtype)
     b = to_device(batch, device)
     extra = () if draws is None else ({
@@ -1634,14 +1655,14 @@ def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
 
 
 def held_to_cpu(card, card_m, cpu, cpu_m, init_tree, lr: dict,
-                gate: bool = True) -> dict:
-    """Every loss and every leaf of the card's state within TRAIN_CARD_BAR
-    of the CPU's (scaled by the leaf's magnitude), the gradients (Adam's
+                gate: bool = True, bar: float = TRAIN_CARD_BAR) -> dict:
+    """Every loss and every leaf of the card's state within `bar` of the
+    CPU's (scaled by the leaf's magnitude), the gradients (Adam's
     mu) included; the parameter entries whose gradient is rounding noise
     (ill_conditioned) are held instead to a move of at most 2 lr on both
     devices.  `lr`: {part: learning rate} of the Adam-trained parts.  With
     gate=False the differences are measured and nothing raises."""
-    loss_err = check_metrics(card_m, cpu_m, 'card against CPU', gate)
+    loss_err = check_metrics(card_m, cpu_m, 'card against CPU', gate, bar)
     noisy = 0
     for part, part_lr in lr.items():
         masks = ill_conditioned(card, cpu, part)
@@ -1659,22 +1680,21 @@ def held_to_cpu(card, card_m, cpu, cpu_m, init_tree, lr: dict,
         for t, side in zip((card, cpu), sides):
             t[part]['params'] = side
     err, where = tree_diff(card, cpu)
-    if gate and not err <= TRAIN_CARD_BAR:
+    if gate and not err <= bar:
         raise AssertionError(f'card against CPU: {where} differs by '
-                             f'{err:.3g} (bar {TRAIN_CARD_BAR})')
+                             f'{err:.3g} (bar {bar})')
     return {'state_max_scaled_err': err, 'worst_leaf': where,
             'loss_max_scaled_err': loss_err,
             'noise_gradient_entries': noisy}
 
 
 def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict,
-                     dtype=None, measured=None):
+                     dtype=None, float32: bool = False):
     """One step on the card against the port's CPU step from the same
     state, batch and draws, both computing in `dtype` (None: as built),
-    held as held_to_cpu says.  `measured`: {name: (wrapper, dtype)} of
-    further card steps, run under the wrapper (as `deterministic`), whose
-    differences from the CPU step in the same dtype are measured and
-    reported under 'measured', not held to the bar."""
+    held as held_to_cpu says.  With `float32`, the card's step as built
+    (float32) is held against that CPU step to FLOAT32_CARD_BAR under
+    'float32'."""
     cpu = {}
 
     def cpu_step(dt):
@@ -1687,18 +1707,21 @@ def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict,
     card, card_m = one_step(make_trainer, init_tree, batch, draws, 'cuda',
                             dtype)
     out = held_to_cpu(card, card_m, *cpu_step(dtype), init_tree, lr)
-    for name, (wrap, dt) in (measured or {}).items():
-        card, card_m = wrap(one_step)(make_trainer, init_tree, batch, draws,
-                                      'cuda', dt)
-        out.setdefault('measured', {})[name] = held_to_cpu(
-            card, card_m, *cpu_step(dt), init_tree, lr, gate=False)
+    if float32:
+        card, card_m = one_step(make_trainer, init_tree, batch, draws,
+                                'cuda', None)
+        out['float32'] = held_to_cpu(card, card_m, *cpu_step(dtype),
+                                     init_tree, lr, bar=FLOAT32_CARD_BAR)
     return out
 
 
-def nan_and_resume(make_trainer, init_tree, batches, nan_batch):
+def nan_and_resume(make_trainer, init_tree, batches, nan_batch,
+                   moved=None):
     """A NaN batch leaves the state bit-identical (its step aside); a save
     after step 2 and a resume to the end equal the unbroken run bit for
-    bit."""
+    bit.  `moved(before, after)`: for a state that a NaN step rightly
+    moves in part (the SEAN trainer's u vectors), checks those leaves and
+    returns their keys, which the bit identity leaves out."""
     import tempfile
     from ctrlhair_tpu_torch.utils.checkpoint import (
         load_checkpoint, save_checkpoint)
@@ -1709,8 +1732,11 @@ def nan_and_resume(make_trainer, init_tree, batches, nan_batch):
     unbroken = state.to_tree()
     state, m = trainer.train_step(state, nan_batch, *args(state))
     after = state.to_tree()
+    skip = moved(unbroken, after) if moved else ()
+    kept = lambda t: {k: v for k, v in without_step(t).items()
+                      if k not in skip}
     if bool(m['finite']) or int(after['step']) != int(unbroken['step']) + 1 \
-            or not bit_equal(without_step(after), without_step(unbroken)):
+            or not bit_equal(kept(after), kept(unbroken)):
         raise AssertionError('a NaN batch moved the training state')
     trainer, state, args = make_trainer('cuda')
     state.load_tree(init_tree)
@@ -1727,7 +1753,7 @@ def nan_and_resume(make_trainer, init_tree, batches, nan_batch):
         raise AssertionError('the run resumed after step 2 differs from the '
                              'unbroken run')
     return {'nan_state_bit_identical': True, 'resume_bit_identical': True,
-            'resumed_after_step': last}
+            'resumed_after_step': last, 'nan_step_moves': list(skip)}
 
 
 def ct_rec_batch(cfg, sean_cfg, gen, n):
@@ -1977,16 +2003,35 @@ def phase_train_script(smi: str):
 # each pool mask against the same pair through the host route
 POOL_PARSES, POOL_WARPS, POOL_THREADS = 12, 24, 4
 SHAPE_BATCH, BISENET_BATCH, LANDMARK_BATCH = 4, 16, 64
+# the shape step's card-against-CPU check at 128 px, every layer and width
+# kept (with the check at 256 px the shape phase took 196 s of a 613 s
+# smoke, measured on the H100; a float64 CPU step of two samples 34 s at
+# 256 px and 14 s at 128 px on an 8-core host)
+SHAPE_CHECK_SIZE = 128
+# the card-against-CPU checks of trainer_phase take the first CHECK_BATCH
+# samples of the first batch: the CPU's float64 steps at full width are
+# most of the smoke's time, and two samples hold every layer
+CHECK_BATCH = 2
+
+
+def first_samples(tree, n_all: int, n: int):
+    """The first n samples of every tensor whose first dim is the batch
+    (n_all); other tensors (a step's coin) as they are."""
+    return {k: v[:n] if v.dim() and v.shape[0] == n_all else v
+            for k, v in tree.items()}
 
 
 def trainer_phase(name: str, make_trainer, batches, nan_batch, draws,
-                  lr: dict, smi: str) -> dict:
+                  lr: dict, smi: str, check=None) -> dict:
     """The steps of one trainer on the card, timed (host ms a step, ended by
     torch.cuda.synchronize(); steady state = the median of steps 2 to 5),
     its peak device memory and a profiler reading of one step; then the
-    checks: the card's first step against the port's CPU step (held with
-    the models computing in float64, measured in float32), a NaN batch, and
-    a resume after step 2."""
+    checks: the card's first step against the port's CPU step on the first
+    CHECK_BATCH samples (held with the models computing in float64, and
+    the float32 step against the CPU's float64 one), a NaN batch, and a
+    resume after step 2.
+    `check`: (make_trainer, batch, draws) of a smaller depth for the
+    card-against-CPU check, in place of this trainer's."""
     trainer, state, args = make_trainer('cuda')
     init_tree = state.to_tree()
     n_params = sum(p.numel() for m in trained_modules(state)
@@ -2013,17 +2058,22 @@ def trainer_phase(name: str, make_trainer, batches, nan_batch, draws,
     # held with the models computing in float64 on both devices: in
     # float32 the shape step's own error (against float64, on the CPU)
     # reaches 1.2e-4 of a gradient's scale, the bar itself; the float32
-    # step, as trained, measured beside it
+    # step, as trained, held against the CPU's float64 step beside it
+    make_check, batch, check_draws = check or (make_trainer, batches[0],
+                                               draws)
+    n_all = next(iter(batch.values())).shape[0]
     cpu_check = deterministic(card_against_cpu)(
-        make_trainer, init_tree, {k: v.cpu() for k, v in batches[0].items()},
-        None if draws is None else {k: v.cpu() for k, v in draws.items()},
-        lr, dtype=torch.float64,
-        measured={'float32': (deterministic, None),
-                  'float32_native_convs': (native_convs, None)})
+        make_check, make_check('cuda')[1].to_tree() if check else init_tree,
+        first_samples({k: v.cpu() for k, v in batch.items()}, n_all,
+                      CHECK_BATCH),
+        None if check_draws is None else first_samples(
+            {k: v.cpu() for k, v in check_draws.items()}, n_all,
+            CHECK_BATCH),
+        lr, dtype=torch.float64, float32=True)
     checks = deterministic(nan_and_resume)(make_trainer, init_tree, batches,
                                            nan_batch)
-    log(f'[train] {name} checks: card against CPU {cpu_check} (bar '
-        f'{TRAIN_CARD_BAR}); {checks}')
+    log(f'[train] {name} checks: card against CPU {cpu_check} (bars '
+        f'{TRAIN_CARD_BAR}, float32 {FLOAT32_CARD_BAR}); {checks}')
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2133,12 +2183,24 @@ def phase_train_shape(batches, smi: str) -> dict:
 
     nan_batch = {k: v.clone() for k, v in batches[0].items()}
     nan_batch['face'][1, 3, 4, 0] = float('nan')
+    # the check at 128 px: every layer and width, the maps half the side
+    small = dataclasses.replace(cfg, img_size=SHAPE_CHECK_SIZE)
+
+    def make_small(device):
+        trainer = ShapeTrainer(small, device=device, seed=SEED)
+        return trainer, trainer.init_state(SEED), lambda st: ()
+
+    step = cfg.img_size // SHAPE_CHECK_SIZE
     rec = trainer_phase(
         'shape ShapeConfig() kl_free_bits=0.25 lambda_geo=30 lambda_info=1,'
         f' batch {SHAPE_BATCH}',
         make_trainer, batches, nan_batch,
         ShapeTrainer(cfg, device='cuda', seed=SEED).draws(0, SHAPE_BATCH),
-        {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_dz}, smi)
+        {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_dz}, smi,
+        check=(make_small, {k: v[:, ::step, ::step]
+                            for k, v in batches[0].items()},
+               ShapeTrainer(small, device='cuda', seed=SEED).draws(
+                   0, SHAPE_BATCH)))
     return {'config': 'ShapeConfig(), kl_free_bits=0.25, lambda_geo=30, '
                       'lambda_info=1', 'batch': SHAPE_BATCH, **rec}
 
@@ -2202,9 +2264,212 @@ def phase_train_landmark(smi: str) -> dict:
                                                  * LANDMARK_BATCH), **rec}
 
 
+# The SEAN trainer: batch 4 (run_sean's default) at SEANConfig(); its checks
+# (card against CPU, NaN, resume) at crop 64, every width kept, batch 4 (the
+# CPU's float64 step of the full 256 px width takes minutes, deterministic
+# cuDNN at full width 4 s a step).  Not at batch 2: the style codes are
+# pooled in float32 on both devices (as JAX pools them), and the first
+# block's batch statistics over 2 x 2 x 2 values magnify their 2e-7 apart
+# to 7.0e-4 of a gradient's scale even with float64 models (measured on the
+# H100, the forward activations 2e-7 apart); over 4 images, 9.1e-7.
+SEAN_BATCH, SEAN_CHECK_CROP = 4, 64
+
+
+def sn_power_iteration(w_tree, u_tree, path=()):
+    """{path: u'} of one power iteration from u over each kernel of a flax
+    tree (HWIO, as [kh*kw*in, out]), in numpy float64."""
+    out = {}
+    for k, u in u_tree.items():
+        if isinstance(u, dict):
+            out.update(sn_power_iteration(w_tree[k], u, path + (k,)))
+        elif u is not None:
+            w = np.asarray(w_tree[k], np.float64)
+            mat = w.reshape(-1, w.shape[-1])
+            v = mat.T @ np.asarray(u, np.float64)
+            v /= np.linalg.norm(v) + 1e-12
+            new = mat @ v
+            out[path + (k,)] = new / (np.linalg.norm(new) + 1e-12)
+    return out
+
+
+def sean_u_moved(before, after):
+    """A NaN step of the SEAN trainer: each u vector is one power iteration
+    on from the unchanged weights (JAX's rule), within 1e-5."""
+    for key, part in (('sn_u', 'gen'), ('dis_sn_u', 'dis')):
+        want = sn_power_iteration(before[part]['params']['params'],
+                                  before[key])
+        got = dict(tree_leaves(after[key]))
+        if set(got) != set(want) or any(
+                not np.abs(got[p] - want[p]).max() <= 1e-5 for p in want):
+            raise AssertionError(f'a NaN step moved {key} other than by one '
+                                 'power iteration')
+    return ('sn_u', 'dis_sn_u')
+
+
+def phase_train_sean(smi: str) -> dict:
+    """(i) The SEAN trainer at SEANConfig() against the default two-scale
+    PatchGAN and a seeded random VGG19 (nothing downloaded), batch 4 of
+    run_sean's synthetic batches: five steps timed, a profiler reading and
+    the peak memory at full width; then at crop 64: the card against the CPU
+    (float64 models on both devices, and the card's float32 step against
+    the CPU's float64 one), a NaN batch and a resume after step 2."""
+    import dataclasses
+    from ctrlhair_tpu_torch.config import SEANConfig
+    from ctrlhair_tpu_torch.models.layers import init_parameters_
+    from ctrlhair_tpu_torch.models.sean_discriminator import VGG19Features
+    from ctrlhair_tpu_torch.training.sean_trainer import (
+        SEANTrainer, synthetic_batch)
+    cfg = SEANConfig()
+    vgg = VGG19Features()
+    init_parameters_(vgg, torch.Generator().manual_seed(SEED))
+    vgg_state = vgg.state_dict()
+
+    def maker(c):
+        def make_trainer(device):
+            trainer = SEANTrainer(c, vgg_state=vgg_state, device=device,
+                                  seed=SEED)
+            return trainer, trainer.init_state(SEED), lambda st: ()
+        return make_trainer
+
+    host_rng = np.random.default_rng(SEED)
+    batches = [synthetic_batch(host_rng, cfg, SEAN_BATCH, 'cuda')
+               for _ in range(TRAIN_STEPS)]
+    trainer, state, _ = maker(cfg)('cuda')
+    n_params = sum(p.numel() for m in trained_modules(state)
+                   for p in m.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, ms = train_steps(trainer.train_step, state, batches)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(metrics['finite']):
+        raise AssertionError(f'SEAN step: {metrics}')
+    med = float(np.median(ms[1:]))
+    prof = profile_step(lambda: trainer.train_step(state, batches[0]), med)
+    losses = {k: round(float(v), 5) for k, v in metrics.items()
+              if v.numel() == 1 and 'finite' not in k}
+    name = f'sean SEANConfig(), batch {SEAN_BATCH}'
+    log(f'[time] train {name} ({n_params} trained parameters, VGG19 '
+        f'frozen): {len(batches)} steps {", ".join(f"{t:.3f}" for t in ms)} '
+        f'ms; {med:.3f} ms a step, {1e3 / med:.2f} steps/s; peak device '
+        f'memory {peak} B; a step: {prof["device_ms"]:.3f} ms of kernels in '
+        f'{prof["launches"]} launches, card idle '
+        f'{100 * prof["idle_share"]:.1f}%; top: '
+        + ', '.join(f'{n} {t:.3f} ms' for n, t in prof['top'])
+        + f'; losses {losses} ({smi})')
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, crop_size=SEAN_CHECK_CROP)
+    make_small = maker(small)
+    small_tree = make_small('cuda')[1].to_tree()
+    check_rng = np.random.default_rng(SEED + 1)
+    small_batches = [synthetic_batch(check_rng, small, SEAN_BATCH, 'cuda')
+                     for _ in range(4)]
+    nan_batch = {k: v.clone() for k, v in small_batches[0].items()}
+    nan_batch['image'][1, 3, 4, 0] = float('nan')
+    lr = {'gen': 1e-4, 'dis': 4e-4}
+    t0 = time.perf_counter()
+    cpu_check = deterministic(card_against_cpu)(
+        make_small, small_tree,
+        {k: v.cpu() for k, v in small_batches[0].items()}, None, lr,
+        dtype=torch.float64, float32=True)
+    t1 = time.perf_counter()
+    checks = deterministic(nan_and_resume)(make_small, small_tree,
+                                           small_batches, nan_batch,
+                                           moved=sean_u_moved)
+    check_s = {'card_vs_cpu': t1 - t0, 'nan_and_resume':
+               time.perf_counter() - t1}
+    log(f'[train] {name} checks at crop {SEAN_CHECK_CROP}: card against '
+        f'CPU {cpu_check} (bars {TRAIN_CARD_BAR}, float32 '
+        f'{FLOAT32_CARD_BAR}); {checks}; '
+        f'seconds {check_s}')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'config': 'SEANConfig(), MultiscaleDiscriminator(2, 64, 4), '
+                      'random VGG19', 'batch': SEAN_BATCH,
+            'trained_parameters': n_params, 'step_ms': ms, 'median_ms': med,
+            'steps_per_s': 1e3 / med, 'peak_bytes': peak, 'profile': prof,
+            'losses': losses, 'card_vs_cpu_crop': SEAN_CHECK_CROP,
+            'card_vs_cpu': cpu_check, 'check_seconds': check_s, **checks}
+
+
+def phase_canvas_prep(tmp: str, smi: str) -> dict:
+    """(j) On Backend()'s editor (cuda:0, model_trained/ loaded): the
+    transfer-matrix canvas of samples/input.png and its mirror image, then
+    a data-prep pass over a folder of the two: crop, parse, SEAN codes,
+    colour statistics and variance, median codes, landmarks; each timed,
+    its outputs held to their shapes, finite, the parse holding hair."""
+    from ctrlhair_tpu_torch.constants import HAIR_IDX
+    from ctrlhair_tpu_torch.data import prep
+    from ctrlhair_tpu_torch.data.catalog import DataCatalog
+    from ctrlhair_tpu_torch.pipeline.backend import Backend
+    from ctrlhair_tpu_torch.training.validation import transfer_matrix_canvas
+    from ctrlhair_tpu_torch.utils.image import read_png, read_rgb, write_rgb
+    editor = Backend().editor
+    photo = read_rgb(os.path.join(ROOT, 'samples', 'input.png'))
+    photos = [photo, np.ascontiguousarray(photo[:, ::-1])]
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    canvas = timed('transfer_matrix_canvas',
+                   lambda: transfer_matrix_canvas(editor, photos))
+    cell = editor.cfg.edit_size + 2
+    if canvas.shape != (2 * cell + 2, 2 * cell + 2, 3) or \
+            canvas[2:cell, 2:cell].std() < 1.0:
+        raise AssertionError(f'transfer matrix canvas: {canvas.shape}')
+    raw = os.path.join(tmp, 'raw')
+    os.makedirs(raw)
+    for i, img in enumerate(photos):
+        write_rgb(os.path.join(raw, f'{i:05d}.png'), img)
+    ds = os.path.join(tmp, 'ffhq')
+    n = timed('crop_images', lambda: prep.crop_images(
+        editor, raw, os.path.join(ds, 'images_256'), 256))
+    m = timed('compute_masks', lambda: prep.compute_masks(
+        editor, os.path.join(ds, 'images_256'), os.path.join(ds, 'label')))
+    hair = [float((read_png(os.path.join(ds, 'label', f'{i:05d}.png'))
+                   == HAIR_IDX).mean()) for i in range(2)]
+    cat = DataCatalog(tmp, ['ffhq'], validity_check=False)
+    codes = timed('compute_sean_codes', lambda: prep.compute_sean_codes(
+        editor, cat, os.path.join(tmp, 'sean_code_dict.pkl')))
+    rgb = timed('compute_color_stats', lambda: prep.compute_color_stats(
+        cat, os.path.join(tmp, 'rgb.pkl'), os.path.join(tmp, 'hsv.pkl')))
+    var = timed('compute_color_variance', lambda: prep.compute_color_variance(
+        cat, os.path.join(tmp, 'var.pkl')))
+    med = timed('compute_mean_style_codes',
+                lambda: prep.compute_mean_style_codes(codes, tmp))
+    lms = timed('compute_landmarks', lambda: prep.compute_landmarks(
+        editor, cat, os.path.join(tmp, 'landmark81.pkl')))
+    style = editor.cfg.sean.style_dim
+    if (n, m, len(codes), len(rgb), len(var), len(lms)) != (2,) * 6 or \
+            min(hair) < 0.1 or med.shape != (19, style) or \
+            not np.isfinite(med).all() or any(
+                c.shape != (19, style) for c in codes.values()) or any(
+                l.shape != (81, 2) or not np.isfinite(l).all()
+                for l in lms.values()):
+        raise AssertionError(f'prep pass: {n} crops, {m} masks (hair '
+                             f'{hair}), {len(codes)} codes, {len(rgb)} '
+                             f'colours, {len(var)} variances, {len(lms)} '
+                             'landmark sets')
+    log('[train] canvas and prep on Backend()\'s editor, samples/input.png '
+        'and its mirror image: '
+        + ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items())
+        + f'; parsed hair shares {[round(h, 4) for h in hair]} ({smi})')
+    del editor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'hair_share': hair}
+
+
 def phase_train_entry_points(root: str, smi: str) -> dict:
-    """(h) run_shape.main on the pool, run_bisenet.main --synthetic and
-    run_landmark.main, 3 steps each on cuda:0; each checkpoint read back
+    """(h) run_shape.main on the pool, run_bisenet.main --synthetic,
+    run_sean.main --synthetic and run_landmark.main, 3 steps each on
+    cuda:0; each checkpoint read back
     equal; the landmark checkpoint loaded by load_landmark_net, which
     predicts finite points."""
     import tempfile
@@ -2212,20 +2477,21 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
         render_face, transform_landmarks)
     from ctrlhair_tpu_torch.ops import landmarks
     from ctrlhair_tpu_torch.training import (run_bisenet, run_landmark,
-                                             run_shape)
+                                             run_sean, run_shape)
     from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, main, argv in (
                 ('run_shape', run_shape.main, ['--data-root', root]),
-                ('run_bisenet', run_bisenet.main, ['--synthetic'])):
+                ('run_bisenet', run_bisenet.main, ['--synthetic']),
+                ('run_sean', run_sean.main, ['--synthetic'])):
             d = os.path.join(tmp, name)
             t0 = time.perf_counter()
             state = main(argv + ['--steps', '3', '--out-dir', d])
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
             tree, step = load_checkpoint(os.path.join(d, 'checkpoints'))
-            module = (state.gen if name == 'run_shape' else state.model
+            module = (state.model if name == 'run_bisenet' else state.gen
                       ).module
             if step != 2 or state.step != 3 or \
                     not bit_equal(tree, state.to_tree()) or \
@@ -2264,7 +2530,8 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
     log(f'[train] entry points on cuda:0, 3 steps each, checkpoints read '
         f'back equal: run_shape (its pool) {out["run_shape"]["wall_ms"]:.1f}'
         f' ms, run_bisenet --synthetic {out["run_bisenet"]["wall_ms"]:.1f} '
-        f'ms, run_landmark (pool 256) {out["run_landmark"]["wall_ms"]:.1f} '
+        f'ms, run_sean --synthetic {out["run_sean"]["wall_ms"]:.1f} ms, '
+        f'run_landmark (pool 256) {out["run_landmark"]["wall_ms"]:.1f} '
         f'ms, each with its set-up; the landmark checkpoint loaded by '
         f'load_landmark_net and predicting finite points ({smi})')
     return out
@@ -2273,26 +2540,42 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
 def phase_training(smi: str):
     """The training slice: (d) the warp pool, whose warps launch K2, (e)
     the shape trainer on it, (a) colour/texture, (b) predictors, (f) the
-    face parser, (g) the landmark regressor, (c) and (h) the entry points.
+    face parser, (g) the landmark regressor, (i) SEAN, (j) a canvas and a
+    prep pass, (c) and (h) the entry points.
     Timed with cuDNN's defaults, as the entry points run; the checks run
     with deterministic cuDNN algorithms (deterministic)."""
     import tempfile
     reset_launches()
-    rec = {}
+    rec, seconds = {}, {}
+
+    def run(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
-        root, shape_batches, rec['warp_pool'] = phase_train_pool(tmp, smi)
-        rec['shape'] = phase_train_shape(shape_batches, smi)
+        root, shape_batches, rec['warp_pool'] = run(
+            'warp_pool', phase_train_pool, tmp, smi)
+        rec['shape'] = run('shape', phase_train_shape, shape_batches, smi)
         del shape_batches
-        gc.collect()
-        torch.cuda.empty_cache()
-        rec['color_texture'] = phase_train_ct(smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        rec['predictors'] = phase_train_predictors(smi)
-        rec['bisenet'] = phase_train_bisenet(smi)
-        rec['landmark'] = phase_train_landmark(smi)
-        rec['run_color_texture'] = phase_train_script(smi)
-        rec['entry_points'] = phase_train_entry_points(root, smi)
+        for key, fn in (('color_texture', phase_train_ct),
+                        ('predictors', phase_train_predictors),
+                        ('bisenet', phase_train_bisenet),
+                        ('landmark', phase_train_landmark),
+                        ('sean', phase_train_sean)):
+            rec[key] = run(key, fn, smi)
+        rec['canvas_prep'] = run('canvas_prep', phase_canvas_prep,
+                                 os.path.join(tmp, 'prep'), smi)
+        rec['run_color_texture'] = run('run_color_texture',
+                                       phase_train_script, smi)
+        rec['entry_points'] = run('entry_points', phase_train_entry_points,
+                                  root, smi)
+    rec['seconds'] = seconds
+    log('[time] training phases, seconds: '
+        + ', '.join(f'{k} {v:.1f}' for k, v in seconds.items()))
     return read_launches('training', 0, POOL_WARPS), rec
 
 
@@ -2449,7 +2732,10 @@ def main() -> int:
     del codes, label, regen, face, face_t, gen
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = {'until_deployment': time.perf_counter() - t_start}
     d_launches, deployment = phase_deployment()
+    t_phase['deployment'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
     log(f'[time] deployment Backend() build and load: '
         f'{deployment["build_ms"]:.3f} ms wall, one build ({smi})')
     for k, v in deployment['median_ms'].items():
@@ -2461,12 +2747,18 @@ def main() -> int:
     # 8. the serving surface: web server, curation, demo, multigrid
     s_launches, serving = phase_serving(mg_case, stage_ms['output.blend'],
                                         smi)
+    t_phase['serving'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
     gc.collect()
     torch.cuda.empty_cache()
 
     # 9. the training slice: both counts set to 0 before it and read after
     # it; the warp pool launches K2 once a warp
     t_launches, training = phase_training(smi)
+    t_phase['training'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
+    log('[time] phases, seconds: '
+        + ', '.join(f'{k} {v:.1f}' for k, v in t_phase.items()))
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
     raster_entry['case']['ptxas'] = ptxas['raster_uv']
@@ -2511,6 +2803,7 @@ def main() -> int:
         'backend_check': {**warp_check, **routes_check},
         'deployment': deployment, 'serving': serving,
         'training': training,
+        'phase_seconds': t_phase,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

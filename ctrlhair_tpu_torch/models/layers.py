@@ -11,7 +11,10 @@
 # `set_train` flips it): BatchNorm then normalises with the batch's
 # statistics and updates its running ones by flax's rule, and LinearBlock
 # applies dropout.  torch's own training flag is left alone, so eval() and
-# train() change nothing here.  Spectral normalisation is not ported yet.
+# train() change nothing here.  Spectral normalisation is functional, as in
+# JAX (`spectral_normalize_tree`): the trainer keeps the power-iteration
+# vectors as state and runs a model under the normalised weights
+# (`replaced_parameters`).
 # The norms compute their statistics in float32, or in float64 for float64
 # activations (flax's promote_types(dtype, float32));
 # `set_compute_dtype` switches a built model's activations to another
@@ -19,8 +22,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -141,6 +145,17 @@ class Dense(nn.Linear):
         return F.linear(x.to(cd), self.weight.to(cd), bias)
 
 
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """F.pad(x, (pad,) * 4, mode='reflect') by slices and flips: the same
+    values, and a backward without atomics (CUDA's reflection-pad backward
+    adds with them, so two runs of one training step would part in their
+    last bits)."""
+    x = torch.cat([x[..., 1:pad + 1].flip(-1), x,
+                   x[..., -pad - 1:-1].flip(-1)], -1)
+    return torch.cat([x[..., 1:pad + 1, :].flip(-2), x,
+                      x[..., -pad - 1:-1, :].flip(-2)], -2)
+
+
 class TorchConv(nn.Module):
     """Conv2d with torch padding semantics ('zero' or 'reflect'), kernel
     init variance_scaling(1/3, fan_in, uniform)."""
@@ -159,7 +174,7 @@ class TorchConv(nn.Module):
 
     def forward(self, x):
         if self.pad > 0 and self.pad_type == 'reflect':
-            x = F.pad(x, (self.pad,) * 4, mode='reflect')
+            x = reflect_pad(x, self.pad)
         return self.conv(x)
 
 
@@ -482,3 +497,67 @@ def init_parameters_(module: nn.Module, gen: torch.Generator) -> None:
         reset = getattr(m, 'reset_parameters', None)
         if reset is not None:
             reset(gen)
+
+
+def sn_matrix(w: torch.Tensor) -> torch.Tensor:
+    """The matrix whose spectral norm divides a weight: JAX's kernel
+    reshaped to [-1, out], i.e. an OIHW conv weight as HWIO [kh*kw*in,
+    out] (not torch's [out, in*kh*kw]: the same sigma, but another u, and u
+    is state that carries across steps); a Dense weight [out, in] as [in,
+    out]."""
+    if w.dim() == 4:
+        return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+    return w.t()
+
+
+def spectral_normalize(w: torch.Tensor, u: torch.Tensor,
+                       n_iter: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w / sigma, new u) by `n_iter` power iterations from u, with JAX's
+    1e-12 guards.  The gradient flows through v, the new u and sigma, as
+    in JAX (torch.nn.utils.spectral_norm computes u and v without one);
+    only the returned u is detached."""
+    mat = sn_matrix(w)
+    for _ in range(n_iter):
+        v = mat.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+        u = mat @ v
+        u = u / (torch.linalg.vector_norm(u) + 1e-12)
+    sigma = u @ (mat @ v)
+    return w / sigma, u.detach()
+
+
+def spectral_normalize_tree(params: Mapping[str, torch.Tensor],
+                            u_tree: Mapping[str, torch.Tensor],
+                            n_iter: int = 1
+                            ) -> Tuple[Dict[str, torch.Tensor],
+                                       Dict[str, torch.Tensor]]:
+    """Port of ctrlhair_tpu.models.layers.spectral_normalize_tree over
+    parameters by name: every weight named in `u_tree` normalised,
+    -> ({name: normalised weight}, {name: new u})."""
+    out_w, out_u = {}, {}
+    for name, u in u_tree.items():
+        out_w[name], out_u[name] = spectral_normalize(params[name], u,
+                                                      n_iter)
+    return out_w, out_u
+
+
+@contextlib.contextmanager
+def replaced_parameters(module: nn.Module,
+                        values: Mapping[str, torch.Tensor]):
+    """Run `module` with the named parameters replaced by these tensors
+    (the spectrally normalised weights, which carry the graph back to the
+    parameters), as torch.func.functional_call does; the originals come
+    back on exit.  Keep the backward inside the context when a block is
+    rematerialised: its recompute reads the parameters again."""
+    owners = dict(module.named_modules())
+    saved = []
+    try:
+        for name, value in values.items():
+            mod_path, _, attr = name.rpartition('.')
+            owner = owners[mod_path]
+            saved.append((owner, attr, owner._parameters[attr]))
+            owner._parameters[attr] = value
+        yield
+    finally:
+        for owner, attr, param in reversed(saved):
+            owner._parameters[attr] = param

@@ -1,23 +1,32 @@
 # SEAN: the Zencoder style encoder and the ACE/SPADE generator.
 #
-# Port of ctrlhair_tpu/models/sean.py (inference; ConvEncoder, ACE noise and
-# training-mode batch statistics are not ported).  Inside, feature maps are
-# NCHW; the public entry points keep the JAX layouts: images [N,H,W,3],
-# labels [N,H,W], codes [N,19,D].
+# Port of ctrlhair_tpu/models/sean.py (ConvEncoder, unused by the editor and
+# the trainer, is not ported).  Inside, feature maps are NCHW; the public
+# entry points keep the JAX layouts: images [N,H,W,3], labels [N,H,W],
+# codes [N,19,D].
 #   * encode = Zencoder + one masked-mean region pool (a batched matmul),
 #   * decode = SPADE/ACE generator; the 19 per-region fc_mu linears are one
 #     stacked [19,D,D] einsum, and the style convs conv(one_hot (x) mu) are
 #     folded through the 19 region vectors (exact by linearity): a grouped
 #     conv of the 19-channel one-hot with per-sample kernels K @ mu.
+# Train mode (layers.set_train, as the SEAN trainer sets it): the
+# 'syncbatch' parameter-free norm takes the batch's statistics and updates
+# its running ones by flax's rule; ACE noise, with cfg.use_ace_noise, is an
+# argument, {'<block>.<ace>': [N,1,H,W]} (shapes and JAX's key order in
+# `ace_noise_shapes`), each times the ACE's noise_var; cfg.remat_blocks
+# recomputes each block in the backward (torch.utils.checkpoint, as
+# nn.remat), whose second pass through the norms updates their running
+# statistics again: the trainer keeps those of the forward.
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ctrlhair_tpu_torch.config import SEANConfig
 from ctrlhair_tpu_torch.models.layers import (
@@ -92,8 +101,9 @@ class SPADE(nn.Module):
 
 
 class ACE(nn.Module):
-    """Region-adaptive (de)normalisation at inference: parameter-free norm
-    on running statistics, SPADE modulation blended with per-region style
+    """Region-adaptive (de)normalisation: learned noise (train mode, when
+    given), parameter-free norm (running statistics at inference, the
+    batch's in train mode), SPADE modulation blended with per-region style
     modulation."""
 
     def __init__(self, cfg: SEANConfig, norm_nc: int, use_styles: bool = True,
@@ -103,7 +113,7 @@ class ACE(nn.Module):
         self.cfg = cfg
         self.use_styles = use_styles
         self.dtype = dtype
-        # learned noise scale: stored for the weight tree, zero at inference
+        # learned noise scale, applied only to the noise of train mode
         self.noise_var = nn.Parameter(torch.zeros(c))
         if cfg.param_free_norm == 'instance':
             self.pfn = InstanceNorm(dtype=dtype)
@@ -132,9 +142,13 @@ class ACE(nn.Module):
                 self.blending_beta.zero_()
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor,
-                style_codes: Optional[torch.Tensor]) -> torch.Tensor:
-        """x [N,C,H,W]; seg one-hot [N,R,H,W]; style_codes [N,R,D]."""
+                style_codes: Optional[torch.Tensor],
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [N,C,H,W]; seg one-hot [N,R,H,W]; style_codes [N,R,D];
+        noise [N,1,H,W] (train mode with cfg.use_ace_noise)."""
         cd = self.dtype
+        if self.cfg.use_ace_noise and noise is not None:
+            x = x + noise.to(cd) * self.noise_var.to(cd).view(1, -1, 1, 1)
         normalized = self.pfn(x)
         gamma_spade, beta_spade = self.spade(seg)
         if not self.use_styles:
@@ -190,12 +204,18 @@ class SPADEResnetBlock(nn.Module):
             self.conv_s = TorchConv(fin, fout, 1, 1, 0, use_bias=False,
                                     dtype=dtype)
 
-    def forward(self, x, seg, style_codes):
-        dx = self.conv_0(leaky_relu(self.ace_0(x, seg, style_codes)))
-        dx = self.conv_1(leaky_relu(self.ace_1(dx, seg, style_codes)))
+    def forward(self, x, seg, style_codes,
+                noise: Optional[Dict[str, torch.Tensor]] = None):
+        """`noise`: {'ace_0', 'ace_1'[, 'ace_s']: [N,1,H,W]} or None."""
+        noise = noise or {}
+        dx = self.conv_0(leaky_relu(self.ace_0(
+            x, seg, style_codes, noise.get('ace_0'))))
+        dx = self.conv_1(leaky_relu(self.ace_1(
+            dx, seg, style_codes, noise.get('ace_1'))))
         xs = x
         if self.learned_shortcut:
-            xs = self.conv_s(self.ace_s(x, seg, style_codes))
+            xs = self.conv_s(self.ace_s(x, seg, style_codes,
+                                        noise.get('ace_s')))
         return xs + dx
 
 
@@ -225,18 +245,37 @@ class SEANGenerator(nn.Module):
                 use_styles=(i < n_up - 1), dtype=dtype))
         self.conv_img = TorchConv(self.chans[-1], 3, 3, 1, 1, dtype=dtype)
 
+    def block_names(self):
+        """(block name, index of its one-hot map) in forward order."""
+        return ([('head_0', 0)]
+                + [(f'G_middle_{m}', 1)
+                   for m in range(self.cfg.num_middle_blocks)]
+                + [(f'up_{i}', 2 + i) for i in range(len(self.chans) - 1)])
+
     def forward(self, seg_pyramid: Sequence[torch.Tensor],
-                style_codes: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+                style_codes: torch.Tensor,
+                noise: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """`noise` as in ace_noise_shapes; with cfg.remat_blocks, a pass
+        that records gradients recomputes each block in the backward."""
         segs = [s.to(self.dtype) for s in seg_pyramid]
         x = self.fc(segs[0])
-        x = self.head_0(x, segs[0], style_codes)
-        x = upsample2x_nearest(x)
-        for m in range(cfg.num_middle_blocks):
-            x = getattr(self, f'G_middle_{m}')(x, segs[1], style_codes)
-        for i in range(len(self.chans) - 1):
-            x = upsample2x_nearest(x)
-            x = getattr(self, f'up_{i}')(x, segs[2 + i], style_codes)
+        remat = self.cfg.remat_blocks and torch.is_grad_enabled()
+        for name, level in self.block_names():
+            if name.startswith('up_'):
+                x = upsample2x_nearest(x)
+            block = getattr(self, name)
+            sub = None
+            if noise is not None:
+                sub = {k.split('.', 1)[1]: v for k, v in noise.items()
+                       if k.split('.', 1)[0] == name}
+            if remat:
+                x = checkpoint(block, x, segs[level], style_codes, sub,
+                               use_reentrant=False)
+            else:
+                x = block(x, segs[level], style_codes, sub)
+            if name == 'head_0':
+                x = upsample2x_nearest(x)
         x = self.conv_img(leaky_relu(x))
         return torch.tanh(x).float()
 
@@ -262,10 +301,42 @@ class SEAN(nn.Module):
         seg = label_to_one_hot(small, self.cfg.semantic_nc)
         return region_style_pool(code_map.permute(0, 2, 3, 1), seg)
 
-    def decode(self, label: torch.Tensor,
-               style_codes: torch.Tensor) -> torch.Tensor:
-        """label [N,H,W] int + codes [N,19,D] -> image [N,H,W,3] in [-1,1]."""
+    def decode(self, label: torch.Tensor, style_codes: torch.Tensor,
+               noise: Optional[Dict[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """label [N,H,W] int + codes [N,19,D] -> image [N,H,W,3] in [-1,1];
+        noise as in SEANGenerator.forward."""
         labels = downsample_label_pyramid(label, self.pyramid_sizes())
         segs = [_one_hot_nchw(lb, self.cfg.semantic_nc, torch.float32)
                 for lb in labels]
-        return self.generator(segs, style_codes).permute(0, 2, 3, 1)
+        return self.generator(segs, style_codes, noise).permute(0, 2, 3, 1)
+
+    def forward(self, img: torch.Tensor, label: torch.Tensor,
+                noise: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """Encode `img` under `label`, decode the codes: the trainer's
+        reconstruction."""
+        return self.decode(label, self.encode(img, label), noise)
+
+
+def ace_noise_shapes(cfg: SEANConfig, n: int) -> Dict[str, Tuple[int, ...]]:
+    """{'<block>.<ace>': [n,1,H,W]} for every ACE of the generator, in the
+    order JAX draws their noise: the generator splits its key once per block
+    (head_0, G_middle_*, up_*), a block once per ACE (ace_0, ace_1, then
+    ace_s where the width changes), and each ACE draws normal noise of its
+    input's [N,H,W,1] from its key."""
+    nf = cfg.ngf
+    n_up = cfg.num_up_layers - 1
+    chans = [16 * nf] + [nf * 2 ** (n_up - 1 - i) for i in range(n_up)]
+    s = cfg.start_size
+    blocks = ([('head_0', 16 * nf, 16 * nf, s)]
+              + [(f'G_middle_{m}', 16 * nf, 16 * nf, 2 * s)
+                 for m in range(cfg.num_middle_blocks)]
+              + [(f'up_{i}', chans[i], chans[i + 1], 4 * s * 2 ** i)
+                 for i in range(n_up)])
+    out = {}
+    for name, fin, fout, size in blocks:
+        aces = ['ace_0', 'ace_1'] + (['ace_s'] if fin != fout else [])
+        for ace in aces:
+            out[f'{name}.{ace}'] = (n, 1, size, size)
+    return out

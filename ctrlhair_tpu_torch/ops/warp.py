@@ -151,39 +151,44 @@ def rasterize_uv(verts_dst: torch.Tensor, tris: torch.Tensor,
     py, px = torch.meshgrid(ys, xs, indexing='ij')
     px, py = px.reshape(-1, 1), py.reshape(-1, 1)          # [P,1]
     uv_flat = torch.cat([px / width, py / height], 1)      # identity UV
-    found = torch.zeros(px.shape[0], dtype=torch.bool, device=dev)
+    # the pixels no earlier triangle holds: a pixel keeps its first hit, so
+    # later chunks test only these (the same result as testing them all)
+    open_px = torch.arange(px.shape[0], device=dev)
     tris = tris[tris[:, 0] >= 0].long()
     eps = -1e-6
 
     for start in range(0, tris.shape[0], chunk):
+        if open_px.numel() == 0:
+            break
         idx = tris[start:start + chunk]
         a, b, c = (verts_dst[idx[:, k]] for k in range(3))  # [C,2]
         area = ((b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1])
                 - (b[:, 1] - a[:, 1]) * (c[:, 0] - a[:, 0]))  # [C]
         s = torch.where(area >= 0, 1.0, -1.0)
         inv_area = s / torch.clamp(torch.abs(area), min=1e-12)
+        qx, qy = px[open_px], py[open_px]                   # [Q,1]
 
         def edge(p0, p1):
-            # cross(p1-p0, p-p0) for all pixels: [P,C]
-            return ((p1[:, 0] - p0[:, 0]) * (py - p0[:, 1])
-                    - (p1[:, 1] - p0[:, 1]) * (px - p0[:, 0]))
+            # cross(p1-p0, p-p0) for the open pixels: [Q,C]
+            return ((p1[:, 0] - p0[:, 0]) * (qy - p0[:, 1])
+                    - (p1[:, 1] - p0[:, 1]) * (qx - p0[:, 0]))
 
-        w_a = edge(b, c) * s                                # [P,C] ~ alpha
+        w_a = edge(b, c) * s                                # [Q,C] ~ alpha
         w_b = edge(c, a) * s
         w_c = edge(a, b) * s
         inside = (w_a >= eps) & (w_b >= eps) & (w_c >= eps)
-        hit = inside.any(dim=1)                             # [P]
+        hit = inside.any(dim=1)                             # [Q]
+        rows = torch.nonzero(hit)[:, 0]
         # the first triangle of the chunk that holds the pixel
-        first = inside.to(torch.uint8).argmax(dim=1)        # [P]
-        pick = lambda w: w.gather(1, first[:, None])[:, 0] * inv_area[first]
+        first = inside[rows].to(torch.uint8).argmax(dim=1)  # [K]
+        pick = lambda w: (w[rows].gather(1, first[:, None])[:, 0]
+                          * inv_area[first])
         alpha, beta, gamma = pick(w_a), pick(w_b), pick(w_c)
-        tri_first = idx[first]                              # [P,3]
-        uv_hit = (alpha[:, None] * uv[tri_first[:, 0]]
-                  + beta[:, None] * uv[tri_first[:, 1]]
-                  + gamma[:, None] * uv[tri_first[:, 2]])   # [P,2]
-        new = hit & ~found
-        uv_flat = torch.where(new[:, None], uv_hit, uv_flat)
-        found = found | hit
+        tri_first = idx[first]                              # [K,3]
+        uv_flat[open_px[rows]] = (alpha[:, None] * uv[tri_first[:, 0]]
+                                  + beta[:, None] * uv[tri_first[:, 1]]
+                                  + gamma[:, None] * uv[tri_first[:, 2]])
+        open_px = open_px[~hit]
     return uv_flat.reshape(height, width, 2)
 
 

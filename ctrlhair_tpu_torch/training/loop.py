@@ -10,6 +10,7 @@
 from __future__ import annotations
 
 import os
+import sys
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -43,6 +44,19 @@ class MetricsWriter:
     def close(self):
         if self.writer is not None:
             self.writer.close()
+
+
+def device_or_exit(device, tag: str) -> torch.device:
+    """An entry point's device: cuda:0 unless `device` names another.
+    Exits 2 with a message when the card it names is missing; every other
+    error of building the trainer is left to propagate."""
+    from ctrlhair_tpu_torch.pipeline.editor import resolve_device
+    try:
+        return resolve_device(device)
+    except RuntimeError:
+        print(f'[{tag}] no CUDA device is available; pass --device cpu to '
+              'train on the CPU', file=sys.stderr)
+        sys.exit(2)
 
 
 def run_training(state, train_step: Callable, batch_fn: Callable,

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 import numpy as np
 import torch
@@ -49,17 +48,12 @@ def main(argv=None):
     from ctrlhair_tpu_torch.config import BiSeNetConfig
     from ctrlhair_tpu_torch.models.bisenet import normalize_imagenet
     from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
-    from ctrlhair_tpu_torch.training.loop import run_training
+    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
 
     cfg = BiSeNetConfig() if args.input_size is None else BiSeNetConfig(
         input_size=args.input_size)
-    try:
-        trainer = BiSeNetTrainer(cfg, device=args.device)
-    except RuntimeError:
-        print('[run_bisenet] no CUDA device is available; pass --device cpu '
-              'to train on the CPU', file=sys.stderr)
-        sys.exit(2)
-    device = trainer.device
+    device = device_or_exit(args.device, 'run_bisenet')
+    trainer = BiSeNetTrainer(cfg, device=device)
     state = trainer.init_state(args.seed)
 
     dataset = None

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 import numpy as np
 import torch
@@ -48,20 +47,15 @@ def main(argv=None):
     from ctrlhair_tpu_torch.config import ColorTextureConfig
     from ctrlhair_tpu_torch.training.color_texture_trainer import (
         ColorTextureTrainer, synthetic_batch)
-    from ctrlhair_tpu_torch.training.loop import run_training
+    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
     from ctrlhair_tpu_torch.training.predictor_trainer import step_generator
 
     cfg = ColorTextureConfig()
     total_steps = args.steps or cfg.total_step
     batch_size = args.batch_size or cfg.total_batch_size
-    try:
-        trainer = ColorTextureTrainer(cfg, device=args.device,
-                                      seed=args.seed)
-    except RuntimeError:
-        print('[run_color_texture] no CUDA device is available; pass '
-              '--device cpu to train on the CPU', file=sys.stderr)
-        sys.exit(2)
-    device = trainer.device
+    device = device_or_exit(args.device, 'run_color_texture')
+    trainer = ColorTextureTrainer(cfg, device=device,
+                                  seed=args.seed)
     if args.sean_checkpoint and os.path.exists(args.sean_checkpoint):
         from ctrlhair_tpu_torch.config import SEANConfig
         from ctrlhair_tpu_torch.convert import load_variables

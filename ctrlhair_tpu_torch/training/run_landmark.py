@@ -17,7 +17,6 @@
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 
 import numpy as np
@@ -44,18 +43,14 @@ def main(argv=None):
     from ctrlhair_tpu_torch.data import landmark_dataset as D
     from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
     from ctrlhair_tpu_torch.training.landmark_trainer import LandmarkTrainer
+    from ctrlhair_tpu_torch.training.loop import device_or_exit
     from ctrlhair_tpu_torch.training.predictor_trainer import step_seed
     from ctrlhair_tpu_torch.utils.checkpoint import save_checkpoint
 
     cfg = LandmarkNetConfig()
     steps = args.steps or cfg.total_step
-    try:
-        trainer = LandmarkTrainer(cfg, device=args.device)
-    except RuntimeError:
-        print('[run_landmark] no CUDA device is available; pass --device cpu '
-              'to train on the CPU', file=sys.stderr)
-        sys.exit(2)
-    device = trainer.device
+    device = device_or_exit(args.device, 'run_landmark')
+    trainer = LandmarkTrainer(cfg, device=device)
     state = trainer.init_state(args.seed)
 
     rng = np.random.default_rng(args.seed)

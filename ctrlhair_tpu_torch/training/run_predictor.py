@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 import numpy as np
 import torch
@@ -35,7 +34,7 @@ def main(argv=None):
     from ctrlhair_tpu_torch.config import (ColorTextureConfig,
                                            curliness_predictor_config,
                                            rgb_predictor_config)
-    from ctrlhair_tpu_torch.training.loop import run_training
+    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
     from ctrlhair_tpu_torch.training.predictor_trainer import (
         PredictorTrainer)
 
@@ -45,14 +44,9 @@ def main(argv=None):
         'model_trained/color_encoder/ctrlhair_tpu' if args.which == 'rgb'
         else 'model_trained/curliness_classifier/ctrlhair_tpu')
     total_steps = args.steps or cfg.total_step
-    try:
-        trainer = PredictorTrainer(cfg, device=args.device, seed=args.seed)
-    except RuntimeError:
-        print('[run_predictor] no CUDA device is available; pass '
-              '--device cpu to train on the CPU', file=sys.stderr)
-        sys.exit(2)
+    device = device_or_exit(args.device, 'run_predictor')
+    trainer = PredictorTrainer(cfg, device=device, seed=args.seed)
     state = trainer.init_state(args.seed)
-    device = trainer.device
 
     dataset = None
     if not args.synthetic and os.path.isdir(args.data_root):

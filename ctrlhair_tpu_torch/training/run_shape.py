@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 import torch
 
@@ -42,7 +41,7 @@ def main(argv=None):
                          '--dp 1')
 
     from ctrlhair_tpu_torch.config import ShapeConfig
-    from ctrlhair_tpu_torch.training.loop import run_training
+    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
     from ctrlhair_tpu_torch.training.predictor_trainer import step_generator
     from ctrlhair_tpu_torch.training.shape_trainer import (
         ShapeTrainer, synthetic_batch)
@@ -50,13 +49,8 @@ def main(argv=None):
     cfg = ShapeConfig()
     total_steps = args.steps or cfg.total_step
     batch_size = args.batch_size or cfg.total_batch_size
-    try:
-        trainer = ShapeTrainer(cfg, device=args.device, seed=args.seed)
-    except RuntimeError:
-        print('[run_shape] no CUDA device is available; pass --device cpu to '
-              'train on the CPU', file=sys.stderr)
-        sys.exit(2)
-    device = trainer.device
+    device = device_or_exit(args.device, 'run_shape')
+    trainer = ShapeTrainer(cfg, device=device, seed=args.seed)
     state = trainer.init_state(args.seed)
 
     dataset = None

@@ -37,7 +37,6 @@ from ctrlhair_tpu.utils.image import mask_to_rgb as jax_mask_to_rgb
 from ctrlhair_tpu_torch import native as port_native
 from ctrlhair_tpu_torch.convert import from_flax
 from ctrlhair_tpu_torch.ops import landmarks as port_landmarks
-from ctrlhair_tpu_torch.ops.landmarks import estimate_landmarks_81
 from ctrlhair_tpu_torch.ops.warp import warp_hair_mask_between_images
 from ctrlhair_tpu_torch.pipeline import direction_finder as t_dirs
 from ctrlhair_tpu_torch.pipeline.backend import Backend
@@ -49,6 +48,7 @@ from ctrlhair_tpu_torch.utils.image import mask_to_rgb, read_rgb
 from test_landmarks import synthetic_face
 from test_torch_convert import port_config
 from test_torch_editor import FIELDS
+from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 SEED = 3
 
@@ -175,45 +175,6 @@ def test_backend_needs_an_editor():
     assert all(torch.equal(got[k], v) for k, v in want.items())
     assert float(be.editor.style_fallback.abs().sum()) > 0
     assert be.dist_translation.n == 200
-
-
-def test_landmark_net_not_ported():
-    """method='net' and 'auto' run the shipped landmark net, as the JAX
-    package does; an unknown method raises."""
-    from ctrlhair_tpu.ops import landmarks as jax_landmarks
-    lab, _ = synthetic_face(128)
-    img = sample_photos()[0]
-    for method in ('auto', 'net'):
-        ref = jax_landmarks.estimate_landmarks_81(lab, method=method,
-                                                  image=img)
-        got = estimate_landmarks_81(lab, method=method, image=img,
-                                    device='cpu')
-        np.testing.assert_allclose(got, ref, atol=1e-4)
-    assert np.abs(ref - jax_landmarks.contour_landmarks_81(lab)).max() > 0.01
-    with pytest.raises(ValueError):
-        estimate_landmarks_81(lab, method='dlib')
-
-
-def test_need_crop_not_ported(tiny_editor, port, monkeypatch):
-    """Backend.crop_face runs the FFHQ crop on the shipped net's landmarks,
-    as the JAX Backend does (its crop held to the branches it takes without
-    cv2); the need_crop=True transfer is in test_torch_crop.py."""
-    import sys
-    from ctrlhair_tpu.ops import crop as jax_crop
-    crop = jax_crop.recreate_aligned_image
-
-    def crop_without_cv2(*args, **kwargs):
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setitem(sys.modules, 'cv2', None)
-            return crop(*args, **kwargs)
-
-    monkeypatch.setattr(jax_crop, 'recreate_aligned_image', crop_without_cv2)
-    img = sample_photos()[1]
-    ref = JaxBackend(cfg=tiny_editor.cfg, editor=tiny_editor).crop_face(img)
-    got = Backend(editor=port, cfg=port.cfg).crop_face(img)
-    assert got.shape == ref.shape == (64, 64, 3)
-    d = np.abs(got.astype(np.int32) - ref)
-    assert (d <= 1).mean() >= 0.999
 
 
 def test_native_build_failure_raises(monkeypatch, tmp_path):

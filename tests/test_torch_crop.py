@@ -33,6 +33,7 @@ from ctrlhair_tpu_torch.utils.image import read_png, read_rgb, write_rgb
 from test_landmarks import synthetic_face
 from test_torch_convert import port_config
 from test_torch_landmark_net import upscale
+from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 SAMPLES = ['color_sweep', 'input', 'parsed_mask', 'regen_mask',
            'texture_samples', 'transfer_color_texture', 'transfer_matrix',
@@ -132,15 +133,41 @@ def port(tiny_editor):
     return ed
 
 
-def test_crop_face(tiny_editor, port, photo, port_net, no_cv2_crop):
+@pytest.fixture(scope='module')
+def crop_faces(tiny_editor, port, photo, port_net):
+    """{name: (port, JAX)} crop_face of the portrait and of its 1024 px
+    upscale, computed once for the module, the JAX crop without cv2."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_crop, 'recreate_aligned_image',
+                   without_cv2(jax_crop.recreate_aligned_image))
+        for name, img in (('photo', photo),
+                          ('upscale_1024', upscale(photo, 1024))):
+            out[name] = (port.crop_face(img), tiny_editor.crop_face(img))
+    return out
+
+
+@pytest.mark.parametrize('name', ['photo', 'upscale_1024'])
+def test_crop_face(crop_faces, name):
     """The landmarks come from the net on the raw photo (the parse is not
     used), the crop without cv2 on both sides."""
-    for img in (photo, upscale(photo, 1024)):
-        got = port.crop_face(img)
-        ref = tiny_editor.crop_face(img)
-        d = np.abs(got.astype(np.int32) - ref)
-        assert got.shape == ref.shape == (64, 64, 3)
-        assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+    got, ref = crop_faces[name]
+    d = np.abs(got.astype(np.int32) - ref)
+    assert got.shape == ref.shape == (64, 64, 3)
+    assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+
+
+def test_backend_crop_face_matches_jax(crop_faces, port, photo):
+    """Backend.crop_face runs the editor's FFHQ crop on the shipped net's
+    landmarks, as the JAX Backend's does (which is the JAX editor's
+    crop_face, held in crop_faces)."""
+    from ctrlhair_tpu_torch.pipeline.backend import Backend
+    got = Backend(editor=port, cfg=port.cfg).crop_face(photo)
+    np.testing.assert_array_equal(got, crop_faces['photo'][0])
+    ref = crop_faces['photo'][1]
+    assert got.shape == ref.shape == (64, 64, 3)
+    d = np.abs(got.astype(np.int32) - ref)
+    assert (d <= 1).mean() >= 0.999
 
 
 def test_get_hair_color(tiny_editor, port, photo):

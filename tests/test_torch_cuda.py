@@ -5,6 +5,8 @@
 # JAX, so on a machine with a card and no JAX it runs without the suite's
 # conftest:
 #     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -262,37 +264,86 @@ def _leaves(t, p=()):
     if isinstance(t, dict):
         for k in sorted(t):
             yield from _leaves(t[k], p + (k,))
-    else:
+    elif t is not None:              # the SEAN state's u trees hold None
         yield p, np.asarray(t)
 
 
-def _hold_step(card, cpu, init, lrs, bar=1e-4):
-    """A train step on the card against the CPU's from the same state:
-    every leaf within `bar` of the CPU's, scaled by the larger of 1 and the
-    leaf's largest magnitude, Adam's mu (the gradient) included; a
-    parameter entry whose gradient the devices do not reproduce to 1% is
-    rounding noise, which Adam scales to a step of about lr of either sign
-    (a bias that a batch-statistics BatchNorm cancels, a WGAN critic's bias
-    of a unit with the same slope on every sample), and is held to a move
-    of at most 2 lr instead."""
+def _step_distance(got, ref, init, lrs):
+    """(largest scaled difference, its leaf) of one train step's state
+    `got` from `ref`, both from `init`: every leaf's difference scaled by
+    the larger of 1 and the leaf's largest magnitude in `ref`, Adam's mu
+    (the gradient) included; a parameter entry whose gradient the two do
+    not reproduce to 1% is rounding noise, which Adam scales to a step of
+    about lr of either sign (a bias that a batch-statistics BatchNorm
+    cancels, a WGAN critic's bias of a unit with the same slope on every
+    sample), and is held to a move of at most 2 lr instead."""
+    got, ref = copy.deepcopy(got), copy.deepcopy(ref)
     for part, lr in lrs.items():
         mu_g, mu_r = (dict(_leaves(t[part]['opt_state']['0']['mu']))
-                      for t in (card, cpu))
+                      for t in (got, ref))
         p0 = dict(_leaves(init[part]['params']))
-        sides = [dict(_leaves(t[part]['params'])) for t in (card, cpu)]
+        sides = [dict(_leaves(t[part]['params'])) for t in (got, ref)]
         for path, m in mu_r.items():
             noisy = np.abs(mu_g[path] - m) > 1e-2 * np.abs(m)
             for side in sides:
                 assert np.all(np.abs(side[path] - p0[path])[noisy]
                               <= 2 * lr), path
                 side[path] = np.where(noisy, 0.0, side[path])
-        card[part]['params'], cpu[part]['params'] = sides
-    g, r = list(_leaves(card)), list(_leaves(cpu))
+        got[part]['params'], ref[part]['params'] = sides
+    g, r = list(_leaves(got)), list(_leaves(ref))
     assert [p for p, _ in g] == [p for p, _ in r]
+    worst = (0.0, None)
     for (path, a), (_, b) in zip(g, r):
         if b.size:
             scale = max(1.0, float(np.abs(b).max()))
-            assert float(np.abs(a - b).max()) <= bar * scale, path
+            err = float(np.abs(a - b).max()) / scale
+            if err >= worst[0]:
+                worst = (err, path)
+    return worst
+
+
+def _hold_step(card, cpu, init, lrs, bar=1e-4):
+    """A train step on the card against the CPU's from the same state:
+    every leaf within `bar` of the CPU's, as _step_distance measures it."""
+    err, path = _step_distance(card, cpu, init, lrs)
+    assert err <= bar, (path, err)
+
+
+# A float32 step as the trainers take it, the card's and the CPU's, against
+# the CPU's float64 step from the same state: within FLOAT32_BAR, as
+# _step_distance measures it.  The bar lies between the card's float32
+# readings and the same step with TF32 on (cuDNN's and cuBLAS's 10-bit
+# products), which each test also takes and holds above the bar, so that a
+# card that rounds to TF32 fails.  Readings (H100, torch 2.11): PERF.md.
+FLOAT32_BAR = 5e-3
+
+
+def _float32_against_float64(run_step, init, lrs):
+    """{'card', 'cpu', 'card_tf32'}: the distance of each float32 step from
+    the CPU's float64 step.  run_step(device, dtype) -> the state's tree
+    after one step from `init`, the models computing in `dtype`."""
+    ref = run_step('cpu', torch.float64)
+    out = {}
+    for name, device, tf32 in (('cpu', 'cpu', False), ('card', 'cuda', False),
+                               ('card_tf32', 'cuda', True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            tree = run_step(device, torch.float32)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[name] = _step_distance(tree, ref, init, lrs)
+    print('float32 against float64:', out)
+    return {k: v[0] for k, v in out.items()}
+
+
+def _hold_float32(readings):
+    """The card's float32 step within FLOAT32_BAR of the float64 step, and
+    the TF32 step outside it."""
+    assert readings['cpu'] <= FLOAT32_BAR, readings
+    assert readings['card'] <= FLOAT32_BAR, readings
+    assert readings['card_tf32'] > FLOAT32_BAR, readings
 
 
 @pytest.mark.cuda
@@ -394,25 +445,32 @@ def test_shape_train_step_on_card_matches_cpu(card):
 @pytest.mark.cuda
 def test_bisenet_train_step_on_card_matches_cpu(card):
     """One face-parser step (OHEM on three heads, SGD, batch statistics) on
-    the card against the CPU: every leaf within 1e-4 of its scale."""
+    the card against the CPU: with the model computing in float64 on both
+    devices, every leaf within 1e-4 of its scale (as tests/test_torch_
+    bisenet_trainer.py holds it against JAX); in float32, as it trains,
+    the card's step and the CPU's within FLOAT32_BAR of the CPU's float64
+    step, and the TF32 step outside it."""
+    from ctrlhair_tpu_torch.models.layers import set_compute_dtype
     from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
     cfg = C.BiSeNetConfig(input_size=64)
     g = torch.Generator().manual_seed(4)
     batch = {'image': torch.randn((8, 64, 64, 3), generator=g),
              'label': torch.randint(0, 19, (8, 64, 64), generator=g)}
-    trees = []
-    for device in ('cpu', 'cuda'):
+    init = BiSeNetTrainer(cfg, device='cpu').init_state(0).to_tree()
+
+    def run_step(device, dtype):
         tr = BiSeNetTrainer(cfg, device=device)
         state = tr.init_state(0)
-        if trees:
-            state.load_tree(init)
-        else:
-            init = state.to_tree()
+        state.load_tree(init)
+        set_compute_dtype(state.model.module, dtype)
         state, m = tr.train_step(
             state, {k: v.to(device) for k, v in batch.items()})
         assert bool(m['finite'])
-        trees.append(state.to_tree())
-    _hold_step(trees[1], trees[0], init, {})
+        return state.to_tree()
+
+    _hold_step(run_step('cuda', torch.float64),
+               run_step('cpu', torch.float64), init, {})
+    _hold_float32(_float32_against_float64(run_step, init, {}))
 
 
 @pytest.mark.cuda
@@ -478,3 +536,128 @@ def test_warp_pool_on_card_launches_the_kernel(card, tmp_path):
             *big, estimate_landmarks_81(big[0]), estimate_landmarks_81(
                 big[1]), raster='host')
         assert (read_png(os.path.join(out, name)) == host).mean() >= 0.999
+
+
+def _sean_trainer(device, remat=False):
+    """A small SEAN trainer with every feature on (spectral norm,
+    syncbatch, ACE noise, VGG19, lambda_l1) and VGG19 weights seeded on the
+    host, the same on every device."""
+    from ctrlhair_tpu_torch.models.layers import init_parameters_
+    from ctrlhair_tpu_torch.models.sean_discriminator import VGG19Features
+    from ctrlhair_tpu_torch.training.sean_trainer import SEANTrainer
+    cfg = C.SEANConfig(crop_size=32, ngf=4, zencoder_ngf=4, style_dim=16,
+                       num_up_layers=4, num_middle_blocks=1,
+                       use_ace_noise=True, remat_blocks=remat)
+    vgg = VGG19Features()
+    init_parameters_(vgg, torch.Generator().manual_seed(5))
+    return SEANTrainer(cfg, vgg_state=vgg.state_dict(), lambda_l1=0.5,
+                       dis_ndf=8, dis_n_layers=3, device=device)
+
+
+@pytest.mark.cuda
+def test_sean_train_step_on_card_matches_cpu(card):
+    """One SEAN step on the card against the CPU from the same state, batch
+    and ACE noise (drawn on the host): with the models computing in float64
+    on both devices, held as _hold_step says (the u vectors and the running
+    statistics included); in float32, as it trains, the card's step and the
+    CPU's within FLOAT32_BAR of the CPU's float64 step, and the TF32 step
+    outside it."""
+    from ctrlhair_tpu_torch.models.layers import set_compute_dtype
+    from ctrlhair_tpu_torch.training.sean_trainer import synthetic_batch
+    cpu = _sean_trainer('cpu')
+    batch = synthetic_batch(np.random.default_rng(6), cpu.cfg, 4)
+    noise = cpu.draws(0, 4)
+    init = cpu.init_state(0).to_tree()
+    lrs = {'gen': 1e-4, 'dis': 4e-4}
+
+    def run_step(device, dtype):
+        tr = _sean_trainer(device)
+        state = tr.init_state(0)
+        state.load_tree(init)
+        for m in (state.gen.module, state.dis.module, tr.vgg):
+            set_compute_dtype(m, dtype)
+        state, m = tr.train_step(
+            state, {k: v.to(device) for k, v in batch.items()},
+            {k: v.to(device) for k, v in noise.items()})
+        assert bool(m['finite']) and 'g/vgg' in m and 'g/l1' in m
+        return state.to_tree()
+
+    _hold_step(run_step('cuda', torch.float64),
+               run_step('cpu', torch.float64), init, lrs)
+    _hold_float32(_float32_against_float64(run_step, init, lrs))
+
+
+@pytest.mark.cuda
+def test_discriminator_input_gradient_on_card_matches_cpu(card):
+    """The two-scale PatchGAN's gradient to its input on the card against
+    the CPU's in float64, the input built as the SEAN trainer builds it (a
+    concatenation of NHWC permutes: channels-last strides), which sends the
+    second scale through CUDA's channels-last average pool: within 1e-5 of
+    the gradient's largest magnitude.  Beside it, the reading that made the
+    discriminator pool a contiguous copy: the same pool's input gradient
+    on the channels-last input itself, against the CPU's."""
+    from ctrlhair_tpu_torch.models.layers import (
+        init_parameters_, set_compute_dtype)
+    from ctrlhair_tpu_torch.models.sean_discriminator import (
+        MultiscaleDiscriminator)
+    from ctrlhair_tpu_torch.utils.masks import label_to_one_hot
+    dis = MultiscaleDiscriminator(2, 16, 4, 22)
+    init_parameters_(dis, torch.Generator().manual_seed(8))
+    rng = np.random.default_rng(8)
+    image = rng.uniform(-1, 1, (4, 64, 64, 3))
+    label = rng.integers(0, 19, (4, 64, 64))
+    grads = []
+    for device, dtype in (('cpu', torch.float64), ('cuda', torch.float32)):
+        dis.to(device)
+        set_compute_dtype(dis, dtype)
+        img = torch.tensor(image, dtype=dtype, device=device,
+                           requires_grad=True)
+        oh = label_to_one_hot(torch.tensor(label, device=device), 19, dtype)
+        x = torch.cat([oh.permute(0, 3, 1, 2), img.permute(0, 3, 1, 2)], 1)
+        assert x.is_contiguous(memory_format=torch.channels_last)
+        loss = sum(f.mean() for scale in dis(x) for f in scale)
+        g, = torch.autograd.grad(loss, img)
+        grads.append(g.double().cpu())
+    err = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    pooled = []
+    for device in ('cpu', 'cuda'):
+        x = torch.tensor(np.random.default_rng(9).standard_normal(
+            (4, 22, 64, 64)), device=device).contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+        y = torch.nn.functional.avg_pool2d(x, 3, 2, 1,
+                                           count_include_pad=False)
+        w = torch.tensor(np.random.default_rng(10).standard_normal(
+            tuple(y.shape)), device=device)
+        g, = torch.autograd.grad((y * w).sum(), x)
+        pooled.append(g.cpu())
+    raw = float((pooled[1] - pooled[0]).abs().max() / pooled[0].abs().max())
+    print(f'discriminator input gradient {err:.3g}; a channels-last '
+          f'average pool alone {raw:.3g} (float64)')
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_sean_remat_blocks_on_card(card):
+    """remat_blocks on the card: the recomputed blocks give the step of
+    the plain one (deterministic cuDNN), the running statistics updated
+    once."""
+    from ctrlhair_tpu_torch.training.sean_trainer import synthetic_batch
+    batch = synthetic_batch(np.random.default_rng(7),
+                            _sean_trainer('cpu').cfg, 4, 'cuda')
+    trees = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            tr = _sean_trainer('cuda', remat)
+            state = tr.init_state(0)
+            if trees:
+                state.load_tree(init)
+            else:
+                init = state.to_tree()
+            state, m = tr.train_step(state, batch, tr.draws(0, 4))
+            assert bool(m['finite'])
+            trees.append(state.to_tree())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _hold_step(trees[1], trees[0], init, {'gen': 1e-4, 'dis': 4e-4},
+               bar=1e-6)

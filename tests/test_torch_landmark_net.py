@@ -20,6 +20,7 @@ from ctrlhair_tpu_torch.ops import landmarks as tl
 from ctrlhair_tpu_torch.ops.resize import resize_bilinear_nhwc
 from ctrlhair_tpu_torch.pipeline.backend import repo_path
 from ctrlhair_tpu_torch.utils.image import read_rgb
+from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 
@@ -99,22 +100,51 @@ def test_non_faces_rejected_by_both(nets):
         assert tl.net_landmarks_81(img, device='cpu') is None, i
 
 
-@pytest.mark.parametrize('method', ['auto', 'net'])
-def test_estimate_matches_jax(nets, method):
-    """'auto' and 'net' take the net on a face and the contour estimator
-    when the presence head rejects the frame, on both sides."""
+@pytest.fixture(scope='module')
+def estimates(nets):
+    """{method: [(port, JAX)]} of estimate_landmarks_81 on every photo and
+    non-face, each computed once for the module."""
     from test_landmarks import synthetic_face
     label = synthetic_face(256)[0]
-    for img in (*photos().values(), *non_faces()):
-        got = tl.estimate_landmarks_81(label, method=method, image=img,
-                                       device='cpu')
-        ref = jl.estimate_landmarks_81(label, method=method, image=img)
+    out = {}
+    for method in ('auto', 'net'):
+        out[method] = [
+            (tl.estimate_landmarks_81(label, method=method, image=img,
+                                      device='cpu'),
+             jl.estimate_landmarks_81(label, method=method, image=img))
+            for img in (*photos().values(), *non_faces())]
+    return label, out
+
+
+@pytest.mark.parametrize('method', ['auto', 'net'])
+def test_estimate_matches_jax(estimates, method):
+    """'auto' and 'net' take the net on a face and the contour estimator
+    when the presence head rejects the frame, on both sides."""
+    label, out = estimates
+    imgs = (*photos().values(), *non_faces())
+    for (got, ref), img in zip(out[method], imgs):
         np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
         np.testing.assert_allclose(
             tl.estimate_landmarks_68(label, method=method, image=img,
                                      device='cpu'), ref[:68], atol=ATOL)
     with pytest.raises(ValueError):
         tl.estimate_landmarks_81(label, method='net', device='cpu')
+
+
+def test_estimate_takes_the_shipped_net(estimates):
+    """On the sample portrait 'auto' and 'net' give the shipped net's
+    landmarks on both sides, not the contour estimator's; an unknown
+    method raises."""
+    label, out = estimates
+    for method in ('auto', 'net'):
+        got, ref = out[method][0]                 # samples/input.png
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+        np.testing.assert_array_equal(
+            got, tl.net_landmarks_81(photos()['sample_256'],
+                                     device='cpu')[0])
+        assert np.abs(ref - jl.contour_landmarks_81(label)).max() > 0.01
+    with pytest.raises(ValueError):
+        tl.estimate_landmarks_81(label, method='dlib')
 
 
 def test_autoload_and_checkpoint_errors(monkeypatch, tmp_path):

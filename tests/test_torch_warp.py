@@ -24,6 +24,7 @@ from ctrlhair_tpu.ops.raster_pallas import rasterize_uv_pallas
 from ctrlhair_tpu_torch import native
 from ctrlhair_tpu_torch.ops import raster_pallas as rp
 from ctrlhair_tpu_torch.ops import warp as tw
+from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 
 def five_point_mesh(size, shift, use_arap=False, mod=tw):
@@ -147,6 +148,79 @@ def test_rasterize_uv_first_triangle_wins():
     torch.testing.assert_close(out[inside_first], only_first[inside_first],
                                rtol=0, atol=0)
     assert (out[2, 3] - torch.tensor([3 / 20, 2 / 20])).abs().max() < 1e-6
+
+
+def _rasterize_uv_dense(verts_dst, tris, uv, height, width, chunk=16):
+    """ops.warp.rasterize_uv as it was before it tested only the pixels no
+    earlier triangle holds: every pixel against every chunk, the first hit
+    kept by a mask.  The plain version's yardstick for the rewrite."""
+    dev = verts_dst.device
+    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    py, px = torch.meshgrid(ys, xs, indexing='ij')
+    px, py = px.reshape(-1, 1), py.reshape(-1, 1)
+    uv_flat = torch.cat([px / width, py / height], 1)
+    found = torch.zeros(px.shape[0], dtype=torch.bool, device=dev)
+    tris = tris[tris[:, 0] >= 0].long()
+    eps = -1e-6
+    for start in range(0, tris.shape[0], chunk):
+        idx = tris[start:start + chunk]
+        a, b, c = (verts_dst[idx[:, k]] for k in range(3))
+        area = ((b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1])
+                - (b[:, 1] - a[:, 1]) * (c[:, 0] - a[:, 0]))
+        s = torch.where(area >= 0, 1.0, -1.0)
+        inv_area = s / torch.clamp(torch.abs(area), min=1e-12)
+
+        def edge(p0, p1):
+            return ((p1[:, 0] - p0[:, 0]) * (py - p0[:, 1])
+                    - (p1[:, 1] - p0[:, 1]) * (px - p0[:, 0]))
+
+        w_a = edge(b, c) * s
+        w_b = edge(c, a) * s
+        w_c = edge(a, b) * s
+        inside = (w_a >= eps) & (w_b >= eps) & (w_c >= eps)
+        hit = inside.any(dim=1)
+        first = inside.to(torch.uint8).argmax(dim=1)
+        pick = lambda w: w.gather(1, first[:, None])[:, 0] * inv_area[first]
+        alpha, beta, gamma = pick(w_a), pick(w_b), pick(w_c)
+        tri_first = idx[first]
+        uv_hit = (alpha[:, None] * uv[tri_first[:, 0]]
+                  + beta[:, None] * uv[tri_first[:, 1]]
+                  + gamma[:, None] * uv[tri_first[:, 2]])
+        new = hit & ~found
+        uv_flat = torch.where(new[:, None], uv_hit, uv_flat)
+        found = found | hit
+    return uv_flat.reshape(height, width, 2)
+
+
+@pytest.mark.parametrize('chunk', [16, 7])
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_rasterize_uv_equals_dense_version(seed, chunk):
+    """The plain rasteriser, which tests only the pixels still open, equals
+    the dense version bit for bit: random meshes whose triangles overlap,
+    reach past the border, repeat a vertex or lie on a line, with padding
+    rows between them, at chunk sizes that do and do not divide the list.
+    Seed 2 covers the whole image early, so the loop stops before the
+    list's end."""
+    rng = np.random.default_rng(seed)
+    h, w, nv = 40, 48, 30
+    verts = rng.uniform(-6, 54, (nv, 2)).astype(np.float32)
+    verts[-3:] = [[5, 5], [15, 15], [25, 25]]          # collinear
+    tris = rng.integers(0, nv, (57, 3)).astype(np.int32)
+    tris[5] = [2, 2, 7]                                # a repeated vertex
+    tris[11] = [nv - 3, nv - 2, nv - 1]                # zero area
+    tris[[3, 20, 33]] = -1                             # padding
+    if seed == 2:
+        verts[:3] = [[-100, -100], [300, -100], [-100, 300]]
+        tris[9] = [0, 1, 2]                            # covers every pixel
+    uv = rng.uniform(0, 1, (nv, 2)).astype(np.float32)
+    args = (torch.tensor(verts), torch.tensor(tris), torch.tensor(uv), h, w,
+            chunk)
+    got, ref = tw.rasterize_uv(*args), _rasterize_uv_dense(*args)
+    dense_identity = torch.stack(torch.meshgrid(
+        torch.arange(w) / w, torch.arange(h) / h, indexing='xy'), -1)
+    assert (ref != dense_identity).any(-1).float().mean() > 0.3
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
 
 
 def test_rasterize_uv_identity_fallback_exact():
