@@ -56,7 +56,16 @@ Drives the port's four paths at the full default PipelineConfig() width:
      canvas (the transfer matrix of samples/input.png and its mirror image)
      and a data-prep pass over a folder made from them (crop, parse, SEAN
      codes, colour statistics, median codes, landmarks) on Backend()'s
-     editor.
+     editor;
+  6. data parallelism, phase (k), its launch counts set to 0 before it and
+     read after it: (k1) a one-rank NCCL group in this process, the
+     colour/texture, shape, face-parser and SEAN trainers of the training
+     phase at their configs and batches, two steps through the group held
+     bit-equal to two plain steps, then timed against them, the gradient
+     reduce alone by CUDA events; (k2) the face parser at 32 px on two
+     gloo ranks on cuda:0 against one process on the global batch; (k3)
+     run_bisenet under python -m torch.distributed.run --nproc_per_node 1,
+     resumed in this process.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -1774,9 +1783,10 @@ def ct_rec_batch(cfg, sean_cfg, gen, n):
                                 device='cuda') * 2 - 1}
 
 
-def phase_train_ct(smi: str):
+def phase_train_ct(smi: str, dp_cases: dict):
     """(a) The colour/texture trainer at ColorTextureConfig() with a frozen
-    seeded SEAN at SEANConfig() and lambda_rec_img on from step 0."""
+    seeded SEAN at SEANConfig() and lambda_rec_img on from step 0; its
+    trainer and batches go into dp_cases for phase (k)."""
     import dataclasses
     from ctrlhair_tpu_torch.config import ColorTextureConfig, SEANConfig
     from ctrlhair_tpu_torch.models.layers import init_parameters_
@@ -1803,10 +1813,10 @@ def phase_train_ct(smi: str):
 
     predictor_trees = {}
 
-    def make_trainer(device, rec_img=True):
+    def make_trainer(device, rec_img=True, mesh=None):
         trainer = ColorTextureTrainer(
             cfg, sean=sean_on(device) if rec_img else None,
-            rec_img_subset=4, device=device, seed=SEED)
+            rec_img_subset=4, device=device, seed=SEED, mesh=mesh)
         state, preds = trainer.init_state(SEED)
         for k, p in preds.items():     # the card's predictors everywhere
             if k in predictor_trees:
@@ -1892,6 +1902,7 @@ def phase_train_ct(smi: str):
                                            nan_batch)
     log(f'[train] colour/texture checks: card against CPU {cpu_check} (bar '
         f'{TRAIN_CARD_BAR}); {checks}')
+    dp_cases['color_texture'] = (make_trainer, batches)
     return {'config': 'ColorTextureConfig(), lambda_rec_img={0: 1000.0}',
             'sean': 'SEANConfig()', 'batch': CT_BATCH,
             'trained_parameters': n_params, 'step_ms_rec_img_on': ms_on,
@@ -2167,7 +2178,7 @@ def phase_train_pool(tmp: str, smi: str):
                            'mean_labels_equal': float(np.mean(agree))}
 
 
-def phase_train_shape(batches, smi: str) -> dict:
+def phase_train_shape(batches, smi: str, dp_cases: dict) -> dict:
     """(e) The shape trainer at ShapeConfig() with the soak's recipe
     (kl_free_bits 0.25, lambda_geo 30, lambda_info 1), batch 4 from the
     pool."""
@@ -2177,8 +2188,8 @@ def phase_train_shape(batches, smi: str) -> dict:
     cfg = dataclasses.replace(ShapeConfig(), kl_free_bits=0.25,
                               lambda_geo=30.0, lambda_info=1.0)
 
-    def make_trainer(device):
-        trainer = ShapeTrainer(cfg, device=device, seed=SEED)
+    def make_trainer(device, mesh=None):
+        trainer = ShapeTrainer(cfg, device=device, seed=SEED, mesh=mesh)
         return trainer, trainer.init_state(SEED), lambda st: ()
 
     nan_batch = {k: v.clone() for k, v in batches[0].items()}
@@ -2201,11 +2212,12 @@ def phase_train_shape(batches, smi: str) -> dict:
                             for k, v in batches[0].items()},
                ShapeTrainer(small, device='cuda', seed=SEED).draws(
                    0, SHAPE_BATCH)))
+    dp_cases['shape'] = (make_trainer, batches)
     return {'config': 'ShapeConfig(), kl_free_bits=0.25, lambda_geo=30, '
                       'lambda_info=1', 'batch': SHAPE_BATCH, **rec}
 
 
-def phase_train_bisenet(smi: str) -> dict:
+def phase_train_bisenet(smi: str, dp_cases: dict) -> dict:
     """(f) The face parser at BiSeNetConfig() (ResNet-18, 512 px), batch 16
     of synthetic batches drawn as run_bisenet draws them."""
     from ctrlhair_tpu_torch.config import BiSeNetConfig
@@ -2221,14 +2233,15 @@ def phase_train_bisenet(smi: str) -> dict:
             'image': torch.from_numpy(image.astype(np.float32)).cuda(),
             'label': torch.from_numpy(label.astype(np.int32)).cuda()})
 
-    def make_trainer(device):
-        trainer = BiSeNetTrainer(cfg, device=device)
+    def make_trainer(device, mesh=None):
+        trainer = BiSeNetTrainer(cfg, device=device, mesh=mesh)
         return trainer, trainer.init_state(SEED), lambda st: ()
 
     nan_batch = {k: v.clone() for k, v in batches[0].items()}
     nan_batch['image'][2, 7, 9, 1] = float('nan')
     rec = trainer_phase(f'bisenet BiSeNetConfig(), batch {BISENET_BATCH}',
                         make_trainer, batches, nan_batch, None, {}, smi)
+    dp_cases['bisenet'] = (make_trainer, batches)
     return {'config': 'BiSeNetConfig()', 'batch': BISENET_BATCH, **rec}
 
 
@@ -2306,7 +2319,7 @@ def sean_u_moved(before, after):
     return ('sn_u', 'dis_sn_u')
 
 
-def phase_train_sean(smi: str) -> dict:
+def phase_train_sean(smi: str, dp_cases: dict) -> dict:
     """(i) The SEAN trainer at SEANConfig() against the default two-scale
     PatchGAN and a seeded random VGG19 (nothing downloaded), batch 4 of
     run_sean's synthetic batches: five steps timed, a profiler reading and
@@ -2325,9 +2338,9 @@ def phase_train_sean(smi: str) -> dict:
     vgg_state = vgg.state_dict()
 
     def maker(c):
-        def make_trainer(device):
+        def make_trainer(device, mesh=None):
             trainer = SEANTrainer(c, vgg_state=vgg_state, device=device,
-                                  seed=SEED)
+                                  seed=SEED, mesh=mesh)
             return trainer, trainer.init_state(SEED), lambda st: ()
         return make_trainer
 
@@ -2358,6 +2371,7 @@ def phase_train_sean(smi: str) -> dict:
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
+    dp_cases['sean'] = (maker(cfg), batches)
     small = dataclasses.replace(cfg, crop_size=SEAN_CHECK_CROP)
     make_small = maker(small)
     small_tree = make_small('cuda')[1].to_tree()
@@ -2537,7 +2551,234 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
     return out
 
 
-def phase_training(smi: str):
+# ------------------------------------------------------------- parallel
+# Phase (k), data parallelism (ctrlhair_tpu_torch/parallel/).  (k1) a
+# one-rank NCCL group in this process: each of the four data-parallel
+# trainers of the training phase, at its published config and batch, takes
+# DP_CHECK_STEPS steps through the group (every collective of --dp runs)
+# and DP_CHECK_STEPS plain steps from the same state, with deterministic
+# cuDNN; the two states must be bit-identical (a one-rank sum is a copy and
+# x / 1 is x), else their gap is stated and held to DP_GAP_BAR of each
+# leaf's scale.  Then DP_TIME_STEPS more steps of each, in turns, with
+# cuDNN's defaults, timed; the gradient reduce alone by CUDA events.  (k2)
+# two ranks on the one card over gloo, whose CUDA support covers the two
+# collectives the face parser's step needs (all_reduce and broadcast;
+# NCCL takes one rank a card): the parser at a small config, one step,
+# against the single process on the global batch.  (k3) run_bisenet under
+# python -m torch.distributed.run, resumed in this process.
+DP_CHECK_STEPS, DP_TIME_STEPS, DP_GAP_BAR = 2, 4, 1e-6
+K2_WORLD, K2_BATCH, K2_BAR = 2, 8, 1e-5
+K2_CFG = dict(input_size=32, blocks_per_stage=1)
+
+
+def k2_rank(mesh, batch):
+    """(k2) One face-parser step on this rank's rows of `batch` (numpy),
+    float32 with TF32 off: (state tree, finite, collectives)."""
+    from ctrlhair_tpu_torch.config import BiSeNetConfig
+    from ctrlhair_tpu_torch.parallel.mesh import replicated, shard_batch
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    trainer = BiSeNetTrainer(BiSeNetConfig(**K2_CFG), device=mesh.device,
+                             mesh=mesh)
+    state = replicated(trainer.init_state(SEED), mesh)
+    rows = shard_batch({k: torch.from_numpy(v).to(mesh.device)
+                        for k, v in batch.items()}, mesh)
+    state, metrics = trainer.train_step(state, rows)
+    return state.to_tree(), bool(metrics['finite']), mesh.collectives
+
+
+def dp_trainer_case(name, make, batches, mesh, smi) -> dict:
+    """(k1) for one trainer: the plain and the one-rank DP trainer from the
+    same seeded state, DP_CHECK_STEPS steps each with deterministic cuDNN
+    (held bit-equal), then DP_TIME_STEPS each in turns, timed."""
+    from ctrlhair_tpu_torch.parallel.mesh import (
+        all_reduce_grads, replicated, shard_batch)
+    sides = {}
+    for key, m in (('plain', None), ('dp', mesh)):
+        trainer, state, args = make('cuda', mesh=m)
+        sides[key] = [trainer, replicated(state, m), args]
+
+    def step(key, batch):
+        trainer, state, args = sides[key]
+        m = mesh if key == 'dp' else None
+        before = mesh.collectives
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sides[key][1], metrics = trainer.train_step(
+            state, shard_batch(batch, m), *args(state))
+        torch.cuda.synchronize()
+        if not bool(metrics['finite']):
+            raise AssertionError(f'{name}: non-finite {key} step')
+        return (time.perf_counter() - t0) * 1e3, mesh.collectives - before
+
+    @deterministic
+    def checked_steps():
+        for b in batches[:DP_CHECK_STEPS]:
+            for key in ('plain', 'dp'):
+                step(key, b)
+        return sides['plain'][1].to_tree(), sides['dp'][1].to_tree()
+
+    plain_tree, dp_tree = checked_steps()
+    same = bit_equal(dp_tree, plain_tree)
+    gap, where = (0.0, None) if same else tree_diff(dp_tree, plain_tree)
+    if not same and not gap <= DP_GAP_BAR:
+        raise AssertionError(f'{name}: the one-rank DP state stands {gap:.3g} '
+                             f'from the plain one at {where} (bar '
+                             f'{DP_GAP_BAR})')
+    ms = {'plain': [], 'dp': []}
+    collectives = 0
+    for i in range(DP_TIME_STEPS):
+        order = ('plain', 'dp') if i % 2 == 0 else ('dp', 'plain')
+        for key in order:
+            t, c = step(key, batches[(DP_CHECK_STEPS + i) % len(batches)])
+            ms[key].append(t)
+            if key == 'dp':
+                collectives = c
+    params = [p for part in trained_modules(sides['dp'][1])
+              for p in part.parameters()]
+    n_params = sum(p.numel() for p in params)
+    del sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = [torch.randn_like(p) for p in params]
+    reduce_ms = cuda_ms(lambda: all_reduce_grads(grads, mesh), 5)
+    del grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain_ms = float(np.median(ms['plain'][1:]))
+    dp_ms = float(np.median(ms['dp'][1:]))
+    rec = {'trained_parameters': n_params, 'grad_bytes': 4 * n_params,
+           'bit_equal': same, 'gap': gap, 'gap_leaf': where,
+           'reduce_ms': reduce_ms, 'reduce_share': reduce_ms / dp_ms,
+           'plain_step_ms': ms['plain'], 'dp_step_ms': ms['dp'],
+           'plain_median_ms': plain_ms, 'dp_median_ms': dp_ms,
+           'collectives_per_step': collectives}
+    log(f'[parallel] k1 {name}: {DP_CHECK_STEPS} one-rank NCCL DP steps '
+        f'against {DP_CHECK_STEPS} plain steps: '
+        + ('bit-identical' if same else f'gap {gap:.3g} at {where}')
+        + f'; {n_params} trained parameters, {4 * n_params} B of gradient '
+        f'reduced a step in {reduce_ms:.3f} ms (CUDA events, '
+        f'{100 * reduce_ms / dp_ms:.2f}% of a DP step); DP step '
+        f'{dp_ms:.3f} ms against plain {plain_ms:.3f} ms (median of steps '
+        f'2 to {DP_TIME_STEPS}); {collectives} collectives a step ({smi})')
+    return rec
+
+
+def phase_parallel(dp_cases: dict, smi: str):
+    """Phase (k): (k1), (k2) and (k3) as the comment above them says; the
+    launch counts set to 0 before it and read after it (no kernel of the
+    port runs on this path)."""
+    import contextlib
+    import io
+    import tempfile
+    import torch.distributed as dist
+    from ctrlhair_tpu_torch.parallel.dryrun import run_on_ranks
+    from ctrlhair_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
+    from ctrlhair_tpu_torch.training import run_bisenet
+    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
+    reset_launches()
+    rec, seconds = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        device = initialize_runtime(
+            'cuda', init_method=f'file://{os.path.join(tmp, "store")}',
+            world_size=1, rank=0, timeout=300.0)
+        try:
+            mesh = make_mesh(1, device=device)
+            for name in ('color_texture', 'shape', 'bisenet', 'sean'):
+                make, batches = dp_cases.pop(name)
+                rec[name] = dp_trainer_case(name, make, batches, mesh, smi)
+                del make, batches
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    seconds['k1'] = time.perf_counter() - t0
+
+    # (k2) two ranks on the one card over gloo
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    s = K2_CFG['input_size']
+    batch = {'image': rng.standard_normal((K2_BATCH, s, s, 3)).astype(
+                 np.float32),
+             'label': rng.integers(0, 19, (K2_BATCH, s, s)).astype(np.int32)}
+    per_rank = run_on_ranks(k2_rank, K2_WORLD, batch, device='cuda:0',
+                            backend='gloo', deadline_s=300.0)
+
+    from ctrlhair_tpu_torch.config import BiSeNetConfig
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    trainer = BiSeNetTrainer(BiSeNetConfig(**K2_CFG), device='cuda')
+    state = trainer.init_state(SEED)
+    state, metrics = deterministic(trainer.train_step)(
+        state, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    ref = state.to_tree()
+    gaps = [tree_diff(tree, ref) for tree, _, _ in per_rank]
+    if not all(finite for _, finite, _ in per_rank) or not bool(
+            metrics['finite']) or not all(
+            bit_equal(tree, per_rank[0][0]) for tree, _, _ in per_rank) \
+            or not max(g for g, _ in gaps) <= K2_BAR:
+        raise AssertionError(f'(k2) {K2_WORLD} gloo ranks on the card '
+                             f'against one process: gaps {gaps} (bar '
+                             f'{K2_BAR}), finite {[f for _, f, _ in per_rank]}')
+    rec['k2'] = {'world': K2_WORLD, 'backend': 'gloo', 'batch': K2_BATCH,
+                 'config': f'BiSeNetConfig({K2_CFG})', 'gap': gaps[0][0],
+                 'gap_leaf': gaps[0][1], 'collectives': per_rank[0][2]}
+    seconds['k2'] = time.perf_counter() - t0
+    log(f'[parallel] k2 face parser BiSeNetConfig({K2_CFG}), global batch '
+        f'{K2_BATCH} on {K2_WORLD} gloo ranks on cuda:0: ranks '
+        f'bit-identical, {gaps[0][0]:.3g} from one process at {gaps[0][1]} '
+        f'(bar {K2_BAR}); {per_rank[0][2]} collectives in the run')
+
+    # (k3) run_bisenet under the launcher, then resumed in this process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'bisenet')
+        env = {k: v for k, v in os.environ.items() if k not in (
+            'WORLD_SIZE', 'RANK', 'LOCAL_RANK', 'MASTER_ADDR',
+            'MASTER_PORT')}
+        proc = subprocess.run(
+            [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+             '--nproc_per_node', '1', '-m',
+             'ctrlhair_tpu_torch.training.run_bisenet', '--dp', '1',
+             '--synthetic', '--steps', '3', '--out-dir', out],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        launched_ms = (time.perf_counter() - t0) * 1e3
+        if proc.returncode != 0:
+            raise AssertionError('run_bisenet under torch.distributed.run '
+                                 f'exited {proc.returncode}:\n'
+                                 + proc.stderr[-4000:])
+        _, step = load_checkpoint(os.path.join(out, 'checkpoints'))
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            state = run_bisenet.main(['--synthetic', '--steps', '4',
+                                      '--out-dir', out])
+        tree, last = load_checkpoint(os.path.join(out, 'checkpoints'))
+        if step != 2 or last != 3 or state.step != 4 or \
+                'resumed from step 2' not in said.getvalue() or \
+                not bit_equal(tree, state.to_tree()):
+            raise AssertionError(f'(k3) launched checkpoint at step {step}, '
+                                 f'resumed run at {last} / {state.step}: '
+                                 f'{said.getvalue()[-500:]}')
+        del state
+    seconds['k3'] = time.perf_counter() - t0
+    rec['k3'] = {'launched_ms': launched_ms, 'checkpoint_step': step,
+                 'resumed_to_step': last}
+    log(f'[parallel] k3 python -m torch.distributed.run --standalone '
+        f'--nproc_per_node 1 -m ctrlhair_tpu_torch.training.run_bisenet --dp '
+        f'1 --synthetic --steps 3: exit 0 in {launched_ms:.1f} ms with its '
+        f'start, checkpoint at step {step}, resumed in process to step '
+        f'{last} ({smi})')
+    rec['seconds'] = seconds
+    log('[time] parallel phases, seconds: '
+        + ', '.join(f'{k} {v:.1f}' for k, v in seconds.items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read_launches('parallel', 0, 0), rec
+
+
+def phase_training(smi: str, dp_cases: dict):
     """The training slice: (d) the warp pool, whose warps launch K2, (e)
     the shape trainer on it, (a) colour/texture, (b) predictors, (f) the
     face parser, (g) the landmark regressor, (i) SEAN, (j) a canvas and a
@@ -2559,14 +2800,16 @@ def phase_training(smi: str):
     with tempfile.TemporaryDirectory() as tmp:
         root, shape_batches, rec['warp_pool'] = run(
             'warp_pool', phase_train_pool, tmp, smi)
-        rec['shape'] = run('shape', phase_train_shape, shape_batches, smi)
+        rec['shape'] = run('shape', phase_train_shape, shape_batches, smi,
+                           dp_cases)
         del shape_batches
-        for key, fn in (('color_texture', phase_train_ct),
-                        ('predictors', phase_train_predictors),
-                        ('bisenet', phase_train_bisenet),
-                        ('landmark', phase_train_landmark),
-                        ('sean', phase_train_sean)):
-            rec[key] = run(key, fn, smi)
+        for key, fn, args in (
+                ('color_texture', phase_train_ct, (dp_cases,)),
+                ('predictors', phase_train_predictors, ()),
+                ('bisenet', phase_train_bisenet, (dp_cases,)),
+                ('landmark', phase_train_landmark, ()),
+                ('sean', phase_train_sean, (dp_cases,))):
+            rec[key] = run(key, fn, smi, *args)
         rec['canvas_prep'] = run('canvas_prep', phase_canvas_prep,
                                  os.path.join(tmp, 'prep'), smi)
         rec['run_color_texture'] = run('run_color_texture',
@@ -2754,8 +2997,15 @@ def main() -> int:
 
     # 9. the training slice: both counts set to 0 before it and read after
     # it; the warp pool launches K2 once a warp
-    t_launches, training = phase_training(smi)
+    dp_cases = {}
+    t_launches, training = phase_training(smi, dp_cases)
     t_phase['training'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
+
+    # 10. phase (k), data parallelism: both counts set to 0 before it and
+    # read after it
+    p_launches, parallel = phase_parallel(dp_cases, smi)
+    t_phase['parallel'] = time.perf_counter() - t_start - sum(
         t_phase.values())
     log('[time] phases, seconds: '
         + ', '.join(f'{k} {v:.1f}' for k, v in t_phase.items()))
@@ -2768,12 +3018,13 @@ def main() -> int:
         'replaces': 'ctrlhair_tpu/ops/poisson_pallas.py:33',
         'launches': launches + b_launches['masked_cg']
         + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values())
-        + t_launches['masked_cg'],
+        + t_launches['masked_cg'] + p_launches['masked_cg'],
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
                              'deployment': d_launches['masked_cg'],
                              **s_launches['masked_cg'],
-                             'training': t_launches['masked_cg']},
+                             'training': t_launches['masked_cg'],
+                             'parallel': p_launches['masked_cg']},
         **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
@@ -2781,12 +3032,13 @@ def main() -> int:
         'replaces': 'ctrlhair_tpu/ops/raster_pallas.py:146',
         'launches': raster_launches + b_launches['raster_uv']
         + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values())
-        + t_launches['raster_uv'],
+        + t_launches['raster_uv'] + p_launches['raster_uv'],
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
                              'deployment': d_launches['raster_uv'],
                              **s_launches['raster_uv'],
-                             'training': t_launches['raster_uv']},
+                             'training': t_launches['raster_uv'],
+                             'parallel': p_launches['raster_uv']},
         **raster_entry,
     }]
     if set(kernels[0]) != set(kernels[1]):
@@ -2802,7 +3054,7 @@ def main() -> int:
         'session_check': session_check, 'reference': reference,
         'backend_check': {**warp_check, **routes_check},
         'deployment': deployment, 'serving': serving,
-        'training': training,
+        'training': training, 'parallel': parallel,
         'phase_seconds': t_phase,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)

@@ -18,7 +18,9 @@
 # The norms compute their statistics in float32, or in float64 for float64
 # activations (flax's promote_types(dtype, float32));
 # `set_compute_dtype` switches a built model's activations to another
-# dtype, as building it with `dtype=` does.
+# dtype, as building it with `dtype=` does.  Under data parallelism
+# (`set_sync`, flax's BatchNorm(axis_name='dp')) a train-mode BatchNorm
+# takes the statistics of the global batch.
 
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ctrlhair_tpu_torch.parallel.mesh import global_sum
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -259,7 +263,12 @@ class RunningBatchNorm(nn.Module):
     0.1 * batch, the variance biased too (F.batch_norm would take the
     unbiased one).  Normalises in float32 (in float64 for float64 inputs:
     flax's promote_types(dtype, float32)) and returns the compute dtype.
-    `affine=False` is the parameter-free norm of ACE."""
+    `affine=False` is the parameter-free norm of ACE.  With a mesh
+    (`set_sync`) the batch's [mean, E[x^2]] are averaged over the ranks by
+    one differentiable collective before the variance is formed, as flax's
+    pmean over axis_name, so every rank normalises with the global
+    statistics and keeps the same running ones (torch's SyncBatchNorm would
+    keep the unbiased variance)."""
 
     def __init__(self, features: int, affine: bool = True, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, train: bool = False):
@@ -274,6 +283,7 @@ class RunningBatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.train_mode = train
+        self.mesh = None
 
     def reset_parameters(self, gen: torch.Generator):
         with torch.no_grad():
@@ -289,8 +299,11 @@ class RunningBatchNorm(nn.Module):
         if self.train_mode:
             dims = (0,) + tuple(range(2, x.dim()))
             mean = x32.mean(dim=dims)
-            var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean,
-                                  0.0)
+            mean2 = (x32 * x32).mean(dim=dims)
+            if self.mesh is not None:
+                mean, mean2 = global_sum(torch.stack([mean, mean2])
+                                         / self.mesh.world, self.mesh)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
@@ -487,6 +500,15 @@ def set_train(module: nn.Module, train: bool) -> None:
     for m in module.modules():
         if hasattr(m, 'train_mode'):
             m.train_mode = train
+
+
+def set_sync(module: nn.Module, mesh) -> None:
+    """Give every BatchNorm under `module` the global batch's statistics
+    over `mesh` in train mode (None: this process's batch), as building the
+    flax module with axis_name='dp' does."""
+    for m in module.modules():
+        if isinstance(m, RunningBatchNorm):
+            m.mesh = mesh
 
 
 def init_parameters_(module: nn.Module, gen: torch.Generator) -> None:

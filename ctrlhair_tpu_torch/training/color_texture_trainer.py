@@ -25,6 +25,16 @@
 # given none, the step draws them on the host from a generator seeded by
 # (seed, state.step), so they do not depend on the device and a resumed run
 # draws what an unbroken one does.
+#
+# Data parallelism (`mesh`, parallel/mesh.py): the batch is this rank's rows
+# of the global batch, and the step equals the single-process step on the
+# global batch.  The draws are made for the global batch; each rank takes
+# its rows of the interpolation weights and of the permutations, and the
+# fields a permutation indexes (the batch's, and the encoder's noise of the
+# shuffled-condition pass) are gathered from every rank without gradient.
+# The moment terms, the weighted BCE's normaliser and lambda_rec_img (the
+# global batch's first rec_img_subset rows, a ratio of sums) come from
+# global sums; the other terms are per-sample means and stay local.
 
 from __future__ import annotations
 
@@ -38,12 +48,14 @@ from ctrlhair_tpu_torch.constants import HAIR_IDX
 from ctrlhair_tpu_torch.models.color_texture import (
     CTDiscriminator, CTDiscriminatorNoise, Predictor, make_generator)
 from ctrlhair_tpu_torch.models.layers import init_parameters_
+from ctrlhair_tpu_torch.parallel.mesh import (
+    all_gather_fields, global_metrics, global_sum, local_rows, world_size)
 from ctrlhair_tpu_torch.pipeline.editor import resolve_device
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.predictor_trainer import (
     step_generator, to_device)
 from ctrlhair_tpu_torch.training.train_state import (
-    GANTrainState, ModelOpt, adam, grads_finite, param_grads,
+    GANTrainState, ModelOpt, adam, grads_finite, param_grads, reduce_grads,
     safe_apply_updates)
 
 
@@ -57,15 +69,17 @@ class ColorTextureTrainer:
     Pass `sean` (a SEAN module, frozen and float32 here) to add the
     image-space hair reconstruction loss lambda_rec_img on batches that
     carry 'sean_code', 'label' and 'image'; its weight follows the
-    schedule (on at 600k in the reference)."""
+    schedule (on at 600k in the reference).  `mesh`: the data-parallel
+    mesh (None: one process)."""
 
     def __init__(self, cfg: ColorTextureConfig,
                  rgb_pred_cfg=None, curliness_pred_cfg=None,
                  sean=None, rec_img_subset: int = 4, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seed = seed
+        self.mesh = mesh
         self.rgb_pred_cfg = rgb_pred_cfg or rgb_predictor_config()
         self.curliness_pred_cfg = (curliness_pred_cfg
                                    or curliness_predictor_config())
@@ -97,6 +111,9 @@ class ColorTextureTrainer:
             init_parameters_(m, gen)
         for p in preds.values():
             p.requires_grad_(False)
+        if self.cfg.gan_type == 'wgan_gp':
+            for critic in (d, dz):
+                L.assert_penalty_critic(critic, self.mesh)
         state = GANTrainState(
             step=0, gen=ModelOpt(g, self.tx_g, 'ct_gen'),
             dis=ModelOpt(d, self.tx_d, 'ct_dis'),
@@ -104,8 +121,9 @@ class ColorTextureTrainer:
         return state, preds
 
     def draws(self, step: int, n: int) -> Dict[str, torch.Tensor]:
-        """The step's random draws: three permutations of the batch, the
-        encoder-noise coin and the two penalties' interpolation weights."""
+        """The step's random draws for a global batch of n: three
+        permutations of the batch, the encoder-noise coin and the two
+        penalties' interpolation weights."""
         gen = step_generator(self.seed, step)
         out = {f'p{i}': torch.randperm(n, generator=gen) for i in (1, 2, 3)}
         out['use_enc'] = torch.rand((), generator=gen) < \
@@ -117,17 +135,30 @@ class ColorTextureTrainer:
     # ------------------------------------------------------------------ step
     def _rec_img_hair_mse(self, ae_code: torch.Tensor,
                           batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Unweighted hair MSE of the frozen SEAN's render of the first
-        `rec_img_subset` AE codes."""
-        k = min(self.rec_img_subset, batch['sean_code'].shape[0])
-        sean_code = batch['sean_code'][:k]
-        codes = torch.cat([sean_code[:, :HAIR_IDX], ae_code[:k, None],
-                           sean_code[:, HAIR_IDX + 1:]], dim=1)
-        label = batch['label'][:k]
-        render = self.sean.decode(label, codes)
-        hair = (label == HAIR_IDX)[..., None].float()
-        diff = (batch['image'][:k] - render) ** 2 * hair
-        return torch.sum(diff) / torch.clamp_min(torch.sum(hair) * 3.0, 1.0)
+        """Unweighted hair MSE of the frozen SEAN's render of the global
+        batch's first `rec_img_subset` AE codes: each rank renders those of
+        its rows, and the squared errors and hair pixels are summed over the
+        ranks."""
+        n = batch['sean_code'].shape[0]
+        k = min(self.rec_img_subset, n * world_size(self.mesh))
+        first = 0 if self.mesh is None else self.mesh.rank * n
+        k = min(n, max(0, k - first))           # this rank's share
+        if k:
+            sean_code = batch['sean_code'][:k]
+            codes = torch.cat([sean_code[:, :HAIR_IDX], ae_code[:k, None],
+                               sean_code[:, HAIR_IDX + 1:]], dim=1)
+            label = batch['label'][:k]
+            render = self.sean.decode(label, codes)
+            hair = (label == HAIR_IDX)[..., None].float()
+            err = torch.sum((batch['image'][:k] - render) ** 2 * hair)
+            pixels = torch.sum(hair) * 3.0
+        else:       # a zero that still reaches the AE code's gradient
+            err = torch.sum(ae_code[:0])
+            pixels = torch.zeros_like(err)
+        if self.mesh is not None:   # one dtype on every rank: the render's
+            err, pixels = global_sum(torch.stack([err, pixels]).float(),
+                                     self.mesh)
+        return err / torch.clamp_min(pixels, 1.0)
 
     def train_step(self, state: GANTrainState,
                    batch: Dict[str, torch.Tensor],
@@ -139,9 +170,10 @@ class ColorTextureTrainer:
         step = state.step
         gen, dis, dz = (state.gen.module, state.dis.module,
                         state.dis_noise.module)
+        mesh = self.mesh
         code = batch['code']
         if draws is None:
-            draws = self.draws(step, code.shape[0])
+            draws = self.draws(step, code.shape[0] * world_size(mesh))
 
         # shared forward at the pre-update parameters
         d_res_real = dis({'code': code})
@@ -150,15 +182,20 @@ class ColorTextureTrainer:
                   'rgb_mean': batch['rgb_mean'],
                   'pca_std': batch['pca_std']}
         ae_out = gen(ae_mid)
-        p1, p2, p3 = draws['p1'], draws['p2'], draws['p3']
+        # the shuffled-condition pass: this rank's rows of each global
+        # permutation index the global batch's fields
+        p1, p2, p3 = (local_rows(draws[k], mesh) for k in ('p1', 'p2', 'p3'))
+        src = all_gather_fields(
+            {k: batch[k] for k in ('rgb_mean', 'pca_std', 'noise_curliness',
+                                   'curliness_label', 'noise')}
+            | {'enc_noise': d_res_real['noise'].detach()}, mesh)
         gan_in = {
-            'rgb_mean': batch['rgb_mean'][p1],
-            'pca_std': batch['pca_std'][p1],
-            'noise_curliness': batch['noise_curliness'][p2],
-            'curliness_label': batch['curliness_label'][p2],
-            'noise': torch.where(draws['use_enc'],
-                                 d_res_real['noise'].detach()[p3],
-                                 batch['noise'][p3]),
+            'rgb_mean': src['rgb_mean'][p1],
+            'pca_std': src['pca_std'][p1],
+            'noise_curliness': src['noise_curliness'][p2],
+            'curliness_label': src['curliness_label'][p2],
+            'noise': torch.where(draws['use_enc'], src['enc_noise'][p3],
+                                 src['noise'][p3]),
         }
         gan_mid = gen(gan_in)
         gan_out_fake = dis(gan_mid)
@@ -169,7 +206,7 @@ class ColorTextureTrainer:
         if cfg.gan_type == 'wgan_gp':
             ld['lambda_gp'] = L.wgan_gradient_penalty(
                 lambda x: dis({'code': x})['adv'], code, gan_mid['code'],
-                draws['alpha_gp'])
+                local_rows(draws['alpha_gp'], mesh))
         ld['lambda_info'] = _mse(gan_out_fake['noise'], gan_in['noise'])
         ld['lambda_rec'] = _mse(ae_out['code'], code)
         ld['lambda_info_curliness'] = _mse(gan_out_fake['noise_curliness'],
@@ -177,7 +214,7 @@ class ColorTextureTrainer:
         ld['lambda_adv_noise'] = L.gan_loss_g(cfg.gan_type,
                                               dz(ae_mid)['adv'])
         m1, m2 = L.moment_losses(torch.cat(
-            [ae_mid['noise_curliness'], ae_mid['noise']], dim=1))
+            [ae_mid['noise_curliness'], ae_mid['noise']], dim=1), mesh=mesh)
         ld['lambda_moment_1'] = m1
         ld['lambda_moment_2'] = m2
         d_total = sch.total(ld, step)
@@ -194,7 +231,8 @@ class ColorTextureTrainer:
         weights = (torch.abs(gan_in['noise_curliness'])
                    if cfg.curliness_with_weight else None)
         lg['lambda_cls_curliness'] = L.weighted_bce_with_logits(
-            cls, gan_in['curliness_label'].float() / 2 + 0.5, weights)
+            cls, gan_in['curliness_label'].float() / 2 + 0.5, weights,
+            mesh=mesh)
         if cfg.gen_mode == 'eigengan':
             lg['lambda_orthogonal'] = gen.orthogonal_loss()
         if self.sean is not None and 'sean_code' in batch:
@@ -221,10 +259,13 @@ class ColorTextureTrainer:
         dz_total = lz['lambda_adv_noise']
         if cfg.gan_type == 'wgan_gp':
             lz['lambda_gp_noise'] = L.wgan_gradient_penalty(
-                adv_fn, real_noise, fake_noise, draws['alpha_gp_noise'])
+                adv_fn, real_noise, fake_noise,
+                local_rows(draws['alpha_gp_noise'], mesh))
             dz_total = dz_total + cfg.lambda_gp * lz['lambda_gp_noise']
         dz_grads = param_grads(dz_total, state.dis_noise.params())
 
+        d_grads, g_grads, dz_grads = reduce_grads(mesh, d_grads, g_grads,
+                                                  dz_grads)
         finite = grads_finite(d_grads) & grads_finite(g_grads) & \
             grads_finite(dz_grads)
         safe_apply_updates(state.gen, g_grads, finite)
@@ -237,7 +278,7 @@ class ColorTextureTrainer:
                                    'finite': finite}
         metrics.update({f'd/{k}': v.detach() for k, v in ld.items()})
         metrics.update({f'g/{k}': v.detach() for k, v in lg.items()})
-        return state, metrics
+        return state, global_metrics(metrics, mesh)
 
 
 def synthetic_batch(gen: torch.Generator, cfg: ColorTextureConfig,

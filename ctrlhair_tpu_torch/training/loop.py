@@ -5,10 +5,15 @@
 # the state's step (see the trainers), so a run resumed from a checkpoint
 # takes the same draws as one that never stopped.  Scalars go to
 # tensorboardX when it is installed; without it MetricsWriter does nothing,
-# as in JAX.
+# as in JAX.  Under data parallelism (`mesh`) every rank resumes from the
+# same checkpoint, the state is broadcast from rank 0 once at the start,
+# rank 0 alone writes the summaries and the checkpoints, and every rank
+# returns after the last checkpoint is written.  `entry_mesh` gives the
+# entry points JAX's --dp under `python -m torch.distributed.run`.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -16,6 +21,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ctrlhair_tpu_torch.parallel import mesh as pmesh
 from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -59,6 +65,39 @@ def device_or_exit(device, tag: str) -> torch.device:
         sys.exit(2)
 
 
+@contextlib.contextmanager
+def entry_mesh(dp: int, device, tag: str):
+    """(mesh, device) of an entry point's --dp and --device, as JAX's --dp:
+    under `python -m torch.distributed.run --nproc_per_node N`, --dp must
+    be N (WORLD_SIZE) and this process trains its rows of the global batch
+    on cuda:<LOCAL_RANK> over NCCL (on the CPU over gloo with --device
+    cpu); the group is torn down on the way out.  Without the launcher,
+    --dp must be 1 and the mesh is None.  Exits 2 with a message on a
+    mismatch or a missing card."""
+    launched = 'WORLD_SIZE' in os.environ
+    if not launched:
+        if dp != 1:
+            print(f'[{tag}] --dp {dp} needs one process a rank: run under '
+                  f'python -m torch.distributed.run --nproc_per_node {dp}',
+                  file=sys.stderr)
+            sys.exit(2)
+        yield None, device_or_exit(device, tag)
+        return
+    world = int(os.environ['WORLD_SIZE'])
+    if dp != world:
+        print(f'[{tag}] --dp {dp} but the launcher started {world} '
+              'processes (WORLD_SIZE); they must agree', file=sys.stderr)
+        sys.exit(2)
+    cpu = device is not None and torch.device(device).type == 'cpu'
+    if not cpu:
+        device_or_exit(device, tag)
+    dev = pmesh.initialize_runtime('cpu' if cpu else None)
+    try:
+        yield pmesh.make_mesh(dp, device=dev), dev
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def run_training(state, train_step: Callable, batch_fn: Callable,
                  total_steps: int, *,
                  step_args: Callable | None = None,
@@ -67,17 +106,20 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
                  log_step: int = 10, model_save_step: int = 20000,
                  sample_step: int = 25000, max_keep: int = 2,
                  sample_fn: Optional[Callable] = None,
-                 tag: str = 'train', verbose: bool = True):
+                 tag: str = 'train', verbose: bool = True, mesh=None):
     """Run `train_step(state, batch, *extra)` for steps [start, total_steps).
 
-    - batch_fn(step) -> batch dict (host-side sampling)
+    - batch_fn(step) -> batch dict (host-side sampling; this rank's rows
+      under a mesh)
     - step_args() -> extra positional arguments (e.g. frozen predictors)
     - resume: when ckpt_dir holds a checkpoint, the state is restored from
       it (state.load_tree) and the loop continues at its step + 1
     - a checkpoint every model_save_step steps (not at step 0) and one at
-      the end, state.to_tree() in flax's layout
+      the end, state.to_tree() in flax's layout, by rank 0 alone
     """
-    writer = MetricsWriter(log_dir)
+    main = pmesh.is_main(mesh)
+    verbose = verbose and main
+    writer = MetricsWriter(log_dir if main else None)
     start = 0
     if ckpt_dir:
         restored = load_checkpoint(ckpt_dir)
@@ -87,6 +129,7 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
             start = last + 1
             if verbose:
                 print(f'[loop] resumed from step {last}')
+    pmesh.replicated(state, mesh)
 
     extra = tuple(step_args()) if step_args else ()
     t0 = time.time()
@@ -103,13 +146,14 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
                                 if k in metrics)
                 print(f'[loop:{tag}] step {step}/{total_steps} '
                       f'{vals} ({rate:.1f} it/s)')
-        if ckpt_dir and step > 0 and step % model_save_step == 0:
+        if main and ckpt_dir and step > 0 and step % model_save_step == 0:
             save_checkpoint(ckpt_dir, state.to_tree(), step,
                             max_keep=max_keep)
-        if sample_fn and step > 0 and step % sample_step == 0:
+        if main and sample_fn and step > 0 and step % sample_step == 0:
             sample_fn(state, step)
-    if ckpt_dir:
+    if main and ckpt_dir:
         save_checkpoint(ckpt_dir, state.to_tree(), total_steps - 1,
                         max_keep=max_keep)
     writer.close()
+    pmesh.barrier(mesh)
     return state, metrics

@@ -7,13 +7,27 @@
 # create_graph=True, so their own gradient reaches the critic's weights as
 # jax.grad inside jax.grad does; the interpolation weights are an argument,
 # drawn by the caller.
+#
+# Under data parallelism (`mesh`, parallel/mesh.py) each rank holds its rows
+# of the global batch.  The terms that are means of per-sample terms stay
+# local: the mean over ranks of equal shards' means is the global mean.  The
+# free-bits KL (a clamp of a per-dimension batch mean), the moment losses
+# (squares of batch means) and the normaliser of the weighted BCE are not,
+# and take their batch statistics from global sums.  A critic under a
+# double-backward penalty must not couple the samples of a sharded batch
+# (assert_penalty_critic).
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
+
+from ctrlhair_tpu_torch.models.layers import RunningBatchNorm
+from ctrlhair_tpu_torch.parallel.mesh import (
+    batch_mean, global_sum, world_size)
 
 
 def gan_loss_g(gan_type: str, dis_fake: torch.Tensor) -> torch.Tensor:
@@ -81,33 +95,50 @@ def kl_loss(mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
 
 
 def kl_loss_free_bits(mean: torch.Tensor, std: torch.Tensor,
-                      free_bits: float) -> torch.Tensor:
+                      free_bits: float, mesh=None) -> torch.Tensor:
     """Per-dimension free-bits KL: a latent dimension whose batch-mean KL is
     below `free_bits` nats contributes the floor instead.  free_bits=0 is
-    kl_loss."""
+    kl_loss.  The batch mean is the global batch's over `mesh`."""
     var = std ** 2
-    kl_per_dim = 0.5 * torch.mean(
-        mean ** 2 + var - 1.0 - torch.log(var + 1e-4), dim=0)
+    kl_per_dim = 0.5 * batch_mean(
+        mean ** 2 + var - 1.0 - torch.log(var + 1e-4), mesh)
     return torch.mean(torch.clamp_min(kl_per_dim, free_bits))
 
 
-def moment_losses(noise: torch.Tensor, second_moment_target: float = 1.0):
-    """Batch latent moments against the prior's: (first, second)."""
-    m1 = torch.mean(torch.mean(noise, dim=0) ** 2)
-    m2 = torch.mean((torch.mean(noise ** 2, dim=0)
+def moment_losses(noise: torch.Tensor, second_moment_target: float = 1.0,
+                  mesh=None):
+    """Batch latent moments against the prior's: (first, second), over the
+    global batch of `mesh`."""
+    m1 = torch.mean(batch_mean(noise, mesh) ** 2)
+    m2 = torch.mean((batch_mean(noise ** 2, mesh)
                      - second_moment_target) ** 2)
     return m1, m2
 
 
+def assert_penalty_critic(critic: nn.Module, mesh) -> None:
+    """A critic whose input gradient is penalised (WGAN-GP, R0) holds no
+    batch norm when the batch is sharded: its statistics would need a
+    collective under create_graph=True, and every critic of the trainers
+    has d_norm='none'."""
+    if mesh is None:
+        return
+    if any(isinstance(m, RunningBatchNorm) for m in critic.modules()):
+        raise ValueError(f'{type(critic).__name__} has a batch norm under a '
+                         'gradient penalty; data-parallel training needs '
+                         "d_norm='none' there")
+
+
 def weighted_bce_with_logits(logits: torch.Tensor, targets01: torch.Tensor,
-                             weights: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             weights: Optional[torch.Tensor] = None,
+                             mesh=None) -> torch.Tensor:
     """BCE(sigmoid(logits), targets), the probability clipped to
-    [1e-7, 1-1e-7], with optional per-sample weights normalised to mean 1."""
+    [1e-7, 1-1e-7], with optional per-sample weights normalised to mean 1
+    over the global batch of `mesh`."""
     p = torch.clamp(torch.sigmoid(logits), 1e-7, 1 - 1e-7)
     bce = -(targets01 * torch.log(p) + (1 - targets01) * torch.log(1 - p))
     if weights is not None:
-        weights = weights / torch.sum(weights) * weights.shape[0]
+        weights = weights / global_sum(torch.sum(weights), mesh) * (
+            weights.shape[0] * world_size(mesh))
         bce = bce * weights
     return torch.mean(bce)
 

@@ -6,8 +6,11 @@
 # drawn from 0..18, both from one numpy generator of the seed, as JAX draws
 # them); OHEM over the main and both auxiliary heads, SGD with momentum,
 # checkpoints and resume.  Runs on cuda:0; without a card it exits 2 unless
-# given --device cpu.  --dp above 1 (data-parallel training with synced
-# BatchNorm) is a later slice of the port and is refused.
+# given --device cpu.  --dp N trains on N ranks with synced BatchNorm under
+# the launcher, --batch-size staying the global batch (one process a card;
+# training/loop.entry_mesh):
+#   python -m torch.distributed.run --nproc_per_node N \
+#       -m ctrlhair_tpu_torch.training.run_bisenet --dp N ...
 #
 # Usage: python -m ctrlhair_tpu_torch.training.run_bisenet \
 #            [--image-dir ...] [--label-dir ...] [--steps N] [--synthetic]
@@ -31,7 +34,8 @@ def main(argv=None):
     parser.add_argument('--steps', type=int, default=80000)
     parser.add_argument('--batch-size', type=int, default=16)
     parser.add_argument('--dp', type=int, default=1,
-                        help='data-parallel devices (1 only, for now)')
+                        help='data-parallel ranks (the launcher\'s '
+                             '--nproc_per_node)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--input-size', type=int, default=None)
     parser.add_argument('--synthetic', action='store_true',
@@ -40,20 +44,22 @@ def main(argv=None):
                         help="'cpu' to train without a card (default: "
                              'cuda:0)')
     args = parser.parse_args(argv)
-    if args.dp > 1:
-        raise SystemExit('run_bisenet: --dp above 1 needs data-parallel '
-                         'training, a later slice of the port; run with '
-                         '--dp 1')
 
+    from ctrlhair_tpu_torch.training.loop import entry_mesh
+    with entry_mesh(args.dp, args.device, 'run_bisenet') as (mesh, device):
+        return train(args, mesh, device)
+
+
+def train(args, mesh, device):
     from ctrlhair_tpu_torch.config import BiSeNetConfig
     from ctrlhair_tpu_torch.models.bisenet import normalize_imagenet
+    from ctrlhair_tpu_torch.parallel.mesh import shard_batch
     from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
-    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
+    from ctrlhair_tpu_torch.training.loop import run_training
 
     cfg = BiSeNetConfig() if args.input_size is None else BiSeNetConfig(
         input_size=args.input_size)
-    device = device_or_exit(args.device, 'run_bisenet')
-    trainer = BiSeNetTrainer(cfg, device=device)
+    trainer = BiSeNetTrainer(cfg, device=device, mesh=mesh)
     state = trainer.init_state(args.seed)
 
     dataset = None
@@ -71,23 +77,27 @@ def main(argv=None):
     s = cfg.input_size
 
     def batch_fn(step):
+        """The global batch; this rank's rows of it."""
         if dataset is not None:
             batch = dataset.batch(args.batch_size)
-            img = torch.from_numpy(batch['image']).to(device) * 0.5 + 0.5
+            batch = shard_batch({k: torch.from_numpy(v)
+                                 for k, v in batch.items()}, mesh)
+            img = batch['image'].to(device) * 0.5 + 0.5
             return {'image': normalize_imagenet(img),
-                    'label': torch.from_numpy(batch['label']).to(device)}
+                    'label': batch['label'].to(device)}
         image = host_rng.standard_normal((args.batch_size, s, s, 3))
         label = host_rng.integers(0, 19, (args.batch_size, s, s))
-        return {'image': torch.from_numpy(image.astype(np.float32)).to(
-                    device),
-                'label': torch.from_numpy(label.astype(np.int32)).to(device)}
+        batch = shard_batch(
+            {'image': torch.from_numpy(image.astype(np.float32)),
+             'label': torch.from_numpy(label.astype(np.int32))}, mesh)
+        return {k: v.to(device) for k, v in batch.items()}
 
     state, metrics = run_training(
         state, trainer.train_step, batch_fn, args.steps,
         log_dir=os.path.join(args.out_dir, 'summaries'),
         ckpt_dir=os.path.join(args.out_dir, 'checkpoints'),
         model_save_step=10000, sample_step=10000, max_keep=1,
-        tag='bisenet')
+        tag='bisenet', mesh=mesh)
     print('[run_bisenet] done:',
           {k: float(v) for k, v in metrics.items()
            if isinstance(v, torch.Tensor) and v.numel() == 1})

@@ -4,8 +4,11 @@
 # batches (or synthetic ones), the fused step, checkpoints and resume, and
 # with --sean-checkpoint (a reference SEAN netG .pth) the frozen-SEAN
 # lambda_rec_img term.  Runs on cuda:0; without a card it exits 2 unless
-# given --device cpu.  --dp above 1 (data-parallel training) is a later
-# slice of the port and is refused.
+# given --device cpu.  --dp N trains on N ranks under the launcher,
+# --batch-size staying the global batch (one process a card;
+# training/loop.entry_mesh):
+#   python -m torch.distributed.run --nproc_per_node N \
+#       -m ctrlhair_tpu_torch.training.run_color_texture --dp N ...
 #
 # Usage: python -m ctrlhair_tpu_torch.training.run_color_texture \
 #            [--data-root dataset_info_ctrlhair] [--steps N] [--synthetic]
@@ -27,7 +30,8 @@ def main(argv=None):
     parser.add_argument('--steps', type=int, default=None)
     parser.add_argument('--batch-size', type=int, default=None)
     parser.add_argument('--dp', type=int, default=1,
-                        help='data-parallel devices (1 only, for now)')
+                        help='data-parallel ranks (the launcher\'s '
+                             '--nproc_per_node)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--synthetic', action='store_true',
                         help='train on synthetic batches (smoke runs)')
@@ -39,23 +43,26 @@ def main(argv=None):
                         help="'cpu' to train without a card (default: "
                              'cuda:0)')
     args = parser.parse_args(argv)
-    if args.dp > 1:
-        raise SystemExit('run_color_texture: --dp above 1 needs data-'
-                         'parallel training, a later slice of the port; '
-                         'run with --dp 1')
 
+    from ctrlhair_tpu_torch.training.loop import entry_mesh
+    with entry_mesh(args.dp, args.device, 'run_color_texture') as (
+            mesh, device):
+        return train(args, mesh, device)
+
+
+def train(args, mesh, device):
     from ctrlhair_tpu_torch.config import ColorTextureConfig
+    from ctrlhair_tpu_torch.parallel.mesh import shard_batch
     from ctrlhair_tpu_torch.training.color_texture_trainer import (
         ColorTextureTrainer, synthetic_batch)
-    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
+    from ctrlhair_tpu_torch.training.loop import run_training
     from ctrlhair_tpu_torch.training.predictor_trainer import step_generator
 
     cfg = ColorTextureConfig()
     total_steps = args.steps or cfg.total_step
     batch_size = args.batch_size or cfg.total_batch_size
-    device = device_or_exit(args.device, 'run_color_texture')
-    trainer = ColorTextureTrainer(cfg, device=device,
-                                  seed=args.seed)
+    trainer = ColorTextureTrainer(cfg, device=device, seed=args.seed,
+                                  mesh=mesh)
     if args.sean_checkpoint and os.path.exists(args.sean_checkpoint):
         from ctrlhair_tpu_torch.config import SEANConfig
         from ctrlhair_tpu_torch.convert import load_variables
@@ -72,7 +79,7 @@ def main(argv=None):
             ti.strip_ddp_prefix(sd), ngf=scfg.ngf,
             semantic_nc=scfg.semantic_nc, style_dim=scfg.style_dim))
         trainer = ColorTextureTrainer(cfg, sean=sean, device=device,
-                                      seed=args.seed)
+                                      seed=args.seed, mesh=mesh)
         print('[run_color_texture] frozen SEAN loaded: lambda_rec_img '
               'active per schedule')
     elif cfg.lambda_rec_img:
@@ -95,22 +102,25 @@ def main(argv=None):
                 dataset = None
 
     def batch_fn(step):
+        """The global batch; this rank's rows of it."""
         if dataset is not None:
             batch = dataset.training_batch(batch_size)
             batch.pop('items', None)
-            return {k: torch.as_tensor(np.asarray(v, np.float32),
-                                       device=device)
-                    for k, v in batch.items()}
-        # keyed by the step, so a resumed run sees the same batches
-        return synthetic_batch(step_generator(args.seed + 1, step), cfg,
-                               batch_size, device)
+            batch = {k: torch.as_tensor(np.asarray(v, np.float32))
+                     for k, v in batch.items()}
+        else:
+            # keyed by the step, so a resumed run sees the same batches
+            batch = synthetic_batch(step_generator(args.seed + 1, step),
+                                    cfg, batch_size)
+        return {k: v.to(device) for k, v in shard_batch(batch, mesh).items()}
 
     state, metrics = run_training(
         state, trainer.train_step, batch_fn, total_steps,
         step_args=lambda: (predictors,),
         log_dir=os.path.join(args.out_dir, 'logs'),
         ckpt_dir=os.path.join(args.out_dir, 'checkpoints'),
-        model_save_step=20000, sample_step=25000, tag='color_texture')
+        model_save_step=20000, sample_step=25000, tag='color_texture',
+        mesh=mesh)
     print('[run_color_texture] done:',
           {k: float(v) for k, v in metrics.items()
            if isinstance(v, torch.Tensor) and v.numel() == 1})

@@ -9,8 +9,11 @@
 # the VGG19 perceptual term on random weights unless --vgg-weights names a
 # local torchvision vgg19().features file (nothing is downloaded);
 # checkpoints in the JAX package's layout, and resume.  Runs on cuda:0;
-# without a card it exits 2 unless given --device cpu.  --dp above 1
-# (data-parallel training) is a later slice of the port and is refused.
+# without a card it exits 2 unless given --device cpu.  --dp N trains on N
+# ranks under the launcher, --batch-size staying the global batch (one
+# process a card; training/loop.entry_mesh):
+#   python -m torch.distributed.run --nproc_per_node N \
+#       -m ctrlhair_tpu_torch.training.run_sean --dp N ...
 #
 # Usage: python -m ctrlhair_tpu_torch.training.run_sean \
 #            [--image-dir ...] [--label-dir ...] [--steps N] [--synthetic]
@@ -33,7 +36,8 @@ def main(argv=None):
     parser.add_argument('--steps', type=int, default=50000)
     parser.add_argument('--batch-size', type=int, default=4)
     parser.add_argument('--dp', type=int, default=1,
-                        help='data-parallel devices (1 only, for now)')
+                        help='data-parallel ranks (the launcher\'s '
+                             '--nproc_per_node)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--no-vgg', action='store_true',
                         help='drop the VGG perceptual term')
@@ -49,13 +53,16 @@ def main(argv=None):
                         help="'cpu' to train without a card (default: "
                              'cuda:0)')
     args = parser.parse_args(argv)
-    if args.dp > 1:
-        raise SystemExit('run_sean: --dp above 1 needs data-parallel '
-                         'training, a later slice of the port; run with '
-                         '--dp 1')
 
+    from ctrlhair_tpu_torch.training.loop import entry_mesh
+    with entry_mesh(args.dp, args.device, 'run_sean') as (mesh, device):
+        return train(args, mesh, device)
+
+
+def train(args, mesh, device):
     from ctrlhair_tpu_torch.config import SEANConfig
-    from ctrlhair_tpu_torch.training.loop import device_or_exit, run_training
+    from ctrlhair_tpu_torch.parallel.mesh import shard_batch
+    from ctrlhair_tpu_torch.training.loop import run_training
     from ctrlhair_tpu_torch.training.sean_trainer import (
         SEANTrainer, synthetic_batch)
 
@@ -82,10 +89,9 @@ def main(argv=None):
               'loss will use RANDOM VGG19 features, which is NOT the '
               'reference objective (pass --vgg-weights vgg19_features.pth, '
               'or --no-vgg to drop the term)', flush=True)
-    device = device_or_exit(args.device, 'run_sean')
     trainer = SEANTrainer(cfg, use_vgg=not args.no_vgg,
                           vgg_state=vgg_state, device=device,
-                          seed=args.seed)
+                          seed=args.seed, mesh=mesh)
     state = trainer.init_state(args.seed)
 
     dataset = None
@@ -100,17 +106,20 @@ def main(argv=None):
     host_rng = np.random.default_rng(args.seed)
 
     def batch_fn(step):
+        """The global batch; this rank's rows of it."""
         batch = dataset.batch(args.batch_size) if dataset else None
         if batch is not None:
-            return {k: torch.from_numpy(v).to(device)
-                    for k, v in batch.items()}
-        return synthetic_batch(host_rng, cfg, args.batch_size, device)
+            batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        else:
+            batch = synthetic_batch(host_rng, cfg, args.batch_size)
+        return {k: v.to(device) for k, v in shard_batch(batch, mesh).items()}
 
     state, metrics = run_training(
         state, trainer.train_step, batch_fn, args.steps,
         log_dir=os.path.join(args.out_dir, 'summaries'),
         ckpt_dir=os.path.join(args.out_dir, 'checkpoints'),
-        model_save_step=10000, sample_step=10000, max_keep=1, tag='sean')
+        model_save_step=10000, sample_step=10000, max_keep=1, tag='sean',
+        mesh=mesh)
     print('[run_sean] done:',
           {k: float(v) for k, v in metrics.items()
            if isinstance(v, torch.Tensor) and v.numel() == 1})

@@ -31,6 +31,15 @@
 # (models/sean.ace_noise_shapes), is an argument of the step; given none,
 # the step draws it on the host from (seed, state.step), so a resumed run
 # draws what an unbroken one does.
+#
+# Data parallelism (`mesh`, parallel/mesh.py): the batch is this rank's rows
+# of the global batch.  The ACE noise is drawn for the global batch and
+# sliced, the syncbatch norms take the global batch's statistics
+# (layers.set_sync; under remat_blocks the recompute issues their
+# collectives again, in the same order on every rank), the loss terms are
+# per-sample means, and the gradients are averaged over the ranks before
+# the two finite gates.  The u vectors advance from weights every rank
+# holds alike, so they need no collective and stay equal across the ranks.
 
 from __future__ import annotations
 
@@ -42,18 +51,20 @@ import torch
 from ctrlhair_tpu_torch.config import SEANConfig
 from ctrlhair_tpu_torch.convert import from_flax, to_flax
 from ctrlhair_tpu_torch.models.layers import (
-    init_parameters_, replaced_parameters, set_train,
+    init_parameters_, replaced_parameters, set_sync, set_train,
     spectral_normalize_tree)
 from ctrlhair_tpu_torch.models.sean import SEAN, ace_noise_shapes
 from ctrlhair_tpu_torch.models.sean_discriminator import (
     MultiscaleDiscriminator, VGG19Features, vgg_preprocess)
+from ctrlhair_tpu_torch.parallel.mesh import (
+    global_metrics, local_rows, world_size)
 from ctrlhair_tpu_torch.pipeline.editor import resolve_device
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.predictor_trainer import (
     step_generator, to_device)
 from ctrlhair_tpu_torch.training.train_state import (
-    ModelOpt, adam, batch_stats, grads_finite, param_grads, restore_where,
-    safe_apply_updates)
+    ModelOpt, adam, batch_stats, grads_finite, param_grads, reduce_grads,
+    restore_where, safe_apply_updates)
 from ctrlhair_tpu_torch.utils.masks import label_to_one_hot
 
 VGG_WEIGHTS = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1.0)
@@ -131,6 +142,10 @@ class SEANTrainState:
     def parts(self) -> Dict[str, ModelOpt]:
         return {'gen': self.gen, 'dis': self.dis}
 
+    def tensors(self) -> list:
+        return [*self.gen.tensors(), *self.dis.tensors(),
+                *(self.sn_u or {}).values(), *(self.dis_sn_u or {}).values()]
+
     def to_tree(self) -> Dict[str, Any]:
         sean = self.gen.module
         return {'step': np.asarray(self.step, np.int32),
@@ -180,10 +195,12 @@ class SEANTrainer:
                  vgg_state: Optional[Mapping[str, torch.Tensor]] = None,
                  dis_num_d: int = 2, dis_ndf: int = 64,
                  dis_n_layers: int = 4, lambda_l1: float = 0.0,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, mesh=None):
         """vgg_state: VGG19Features' state dict (pretrained weights);
-        None draws random ones in init_state."""
+        None draws random ones in init_state.  mesh: the data-parallel mesh
+        (None: one process)."""
         self.cfg = cfg
+        self.mesh = mesh
         self.lambda_feat, self.lambda_vgg = lambda_feat, lambda_vgg
         self.lambda_l1 = lambda_l1
         self.use_vgg = use_vgg
@@ -212,6 +229,7 @@ class SEANTrainer:
             dis = MultiscaleDiscriminator(*self.dis_args)
         for m in (sean, dis):
             init_parameters_(m, gen)
+        set_sync(sean, self.mesh)
         if self.use_vgg and not self.vgg_loaded:
             init_parameters_(self.vgg, gen)
         sn_u = dis_sn_u = None
@@ -234,7 +252,8 @@ class SEANTrainer:
         return out
 
     def draws(self, step: int, n: int) -> Optional[Dict[str, torch.Tensor]]:
-        """The step's ACE noise (None without cfg.use_ace_noise)."""
+        """The step's ACE noise for a global batch of n (None without
+        cfg.use_ace_noise)."""
         if not self.cfg.use_ace_noise:
             return None
         gen = step_generator(self.seed, step)
@@ -278,8 +297,11 @@ class SEANTrainer:
         batch: 'image' [N,S,S,3] in [-1,1], 'label' int [N,S,S]."""
         img, label = batch['image'], batch['label']
         sean, dis = state.gen.module, state.dis.module
+        mesh = self.mesh
         if noise is None:
-            noise = self.draws(state.step, img.shape[0])
+            noise = self.draws(state.step, img.shape[0] * world_size(mesh))
+        if noise is not None:
+            noise = {k: local_rows(v, mesh) for k, v in noise.items()}
         g_params, d_params = state.gen.params(), state.dis.params()
         g_sn, new_u = ({}, None) if state.sn_u is None else \
             spectral_normalize_tree(dict(sean.named_parameters()),
@@ -309,6 +331,7 @@ class SEANTrainer:
         finally:
             set_train(sean, False)
 
+        g_grads, d_grads = reduce_grads(mesh, g_grads, d_grads)
         g_finite = grads_finite(g_grads)
         d_finite = grads_finite(d_grads)
         safe_apply_updates(state.gen, g_grads, g_finite)
@@ -324,7 +347,7 @@ class SEANTrainer:
                                    'd_total': d_total.detach(),
                                    'finite': g_finite & d_finite}
         metrics.update({f'g/{k}': v.detach() for k, v in lg.items()})
-        return state, metrics
+        return state, global_metrics(metrics, mesh)
 
 
 def synthetic_batch(gen: np.random.Generator, cfg: SEANConfig,

@@ -28,6 +28,13 @@
 # none, the step draws them on the host from a generator seeded by (seed,
 # state.step), so they do not depend on the device and a resumed run draws
 # what an unbroken one does.
+#
+# Data parallelism (`mesh`, parallel/mesh.py): the batch is this rank's rows
+# of the global batch, and the step equals the single-process step on the
+# global batch.  The draws are made for the global batch and each rank
+# takes its rows; the masked cross-entropies (ratios of batch sums), the
+# free-bits KL and the moment terms come from global sums, the other terms
+# are per-sample means and stay local.
 
 from __future__ import annotations
 
@@ -39,21 +46,30 @@ from ctrlhair_tpu_torch.config import ShapeConfig
 from ctrlhair_tpu_torch.models.layers import Dense, init_parameters_
 from ctrlhair_tpu_torch.models.shape import (
     ShapeDiscriminator, ShapeDiscriminatorNoise, ShapeGenerator)
+from ctrlhair_tpu_torch.parallel.mesh import (
+    batch_mean, global_metrics, global_sum, local_rows, world_size)
 from ctrlhair_tpu_torch.pipeline.editor import resolve_device
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.predictor_trainer import (
     step_generator, to_device)
 from ctrlhair_tpu_torch.training.train_state import (
-    GANTrainState, ModelOpt, adam, grads_finite, param_grads,
+    GANTrainState, ModelOpt, adam, grads_finite, param_grads, reduce_grads,
     safe_apply_updates)
 from ctrlhair_tpu_torch.utils.masks import label_to_one_hot, split_hair_face
 
 N_GEO_STATS = 7
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """The mean of `values` where `mask` holds, over the global batch of
+    `mesh`: the ratio of the two global sums."""
     m = mask.float()
-    return torch.sum(values * m) / torch.clamp_min(torch.sum(m), 1.0)
+    total, count = torch.sum(values * m), torch.sum(m)
+    if mesh is not None:
+        total, count = global_sum(torch.stack(
+            [total, count.to(total.dtype)]), mesh)
+    return total / torch.clamp_min(count, 1.0)
 
 
 def disturb_real(mask: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
@@ -107,10 +123,14 @@ class ShapeTrainGenerator(ShapeGenerator):
 
 
 class ShapeTrainer:
-    def __init__(self, cfg: ShapeConfig, device=None, seed: int = 0):
+    """`mesh`: the data-parallel mesh (None: one process)."""
+
+    def __init__(self, cfg: ShapeConfig, device=None, seed: int = 0,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seed = seed
+        self.mesh = mesh
         self.schedule = L.LossSchedule(cfg)
         self.tx_g = adam(cfg.lr_g, cfg.beta1, cfg.beta2)
         self.tx_d = adam(cfg.lr_d, cfg.beta1, cfg.beta2)
@@ -126,6 +146,10 @@ class ShapeTrainer:
             dz = ShapeDiscriminatorNoise(self.cfg)
         for m in (g, d, dz):
             init_parameters_(m, gen)
+        for critic, weight in ((d, self.cfg.lambda_gp_0),
+                               (dz, self.cfg.lambda_gp_0_noise)):
+            if weight > 0:
+                L.assert_penalty_critic(critic, self.mesh)
         if self.cfg.lambda_geo > 0:
             with torch.no_grad():
                 for p in g.geo_head.parameters():
@@ -141,7 +165,8 @@ class ShapeTrainer:
         return 0.5 if self.cfg.lambda_info > 0 else self.cfg.random_ae_prob
 
     def draws(self, step: int, n: int) -> Dict[str, torch.Tensor]:
-        """The step's random draws: the VAE noise, the prior noise and the
+        """The step's random draws for a global batch of n: the VAE noise,
+        the prior noise and the
         AE-or-prior coin; with disturb_real_batch_mask the uniforms of the
         target, face and real masks; with lambda_info the re-encode's VAE
         noise."""
@@ -201,24 +226,25 @@ class ShapeTrainer:
 
     def _g_losses(self, gen, dis, dz, f, batch) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
+        mesh = self.mesh
         lg = {'lambda_adv': L.gan_loss_g(cfg.gan_type,
                                          dis(f['fake_for_dis']))}
         hair, face = split_hair_face(f['ae_out_mask'])
         lg['lambda_hair'] = _masked_mean(-torch.log(hair + 1e-5),
-                                         f['ae_in_hair'] > 0.5)
+                                         f['ae_in_hair'] > 0.5, mesh)
         lg['lambda_non_hair'] = _masked_mean(-torch.log(1 - hair + 1e-5),
-                                             f['ae_in_hair'] < 0.5)
+                                             f['ae_in_hair'] < 0.5, mesh)
         lg['lambda_face'] = _masked_mean(-torch.log(face + 1e-5),
-                                         f['ae_in_target_face'] > 0.5)
+                                         f['ae_in_target_face'] > 0.5, mesh)
         # self-reconstruction through the donor mask, at the posterior mean
         hair_hair, hair_face = split_hair_face(batch['hair'])
         donor_mask = gen.decode(gen.encode_hair(hair_hair)[1],
                                 gen.encode_face(hair_face))
         lg['lambda_self_rec'] = _masked_mean(-torch.log(donor_mask + 1e-5),
-                                             batch['hair'] > 0.5)
+                                             batch['hair'] > 0.5, mesh)
         lg['lambda_kl'] = (
             L.kl_loss_free_bits(f['hair_mean'], f['hair_std'],
-                                cfg.kl_free_bits)
+                                cfg.kl_free_bits, mesh=mesh)
             if cfg.kl_free_bits > 0
             else L.kl_loss(f['hair_mean'], f['hair_std']))
         if cfg.lambda_geo > 0:
@@ -227,10 +253,10 @@ class ShapeTrainer:
             lg['lambda_geo'] = torch.mean((pred - target) ** 2)
         if cfg.lambda_moment_1 > 0:
             lg['lambda_moment_1'] = torch.mean(
-                torch.mean(f['hair_code'], dim=0) ** 2)
+                batch_mean(f['hair_code'], mesh) ** 2)
         if cfg.lambda_moment_2 > 0:
             lg['lambda_moment_2'] = torch.mean(
-                (torch.mean(f['hair_code'] ** 2, dim=0) - 0.973) ** 2)
+                (batch_mean(f['hair_code'] ** 2, mesh) - 0.973) ** 2)
         if cfg.lambda_info > 0:
             lg['lambda_info'] = torch.mean(
                 (f['gan_out_hair_code'] - f['real_noise']) ** 2)
@@ -248,8 +274,12 @@ class ShapeTrainer:
         step = state.step
         gen, dis, dz = (state.gen.module, state.dis.module,
                         state.dis_noise.module)
+        mesh = self.mesh
         if draws is None:
-            draws = self.draws(step, batch['target'].shape[0])
+            draws = self.draws(step, batch['target'].shape[0]
+                               * world_size(mesh))
+        draws = {k: local_rows(v, mesh) if v.dim() else v
+                 for k, v in draws.items()}
         real_batch = batch['real']
         if cfg.disturb_real_batch_mask:
             real_batch = disturb_real(real_batch, draws['dist_real'])
@@ -278,6 +308,8 @@ class ShapeTrainer:
                 L.r0_gradient_penalty(dz, real_noise)
         dz_grads = param_grads(dz_total, state.dis_noise.params())
 
+        d_grads, g_grads, dz_grads = reduce_grads(mesh, d_grads, g_grads,
+                                                  dz_grads)
         finite = grads_finite(d_grads) & grads_finite(g_grads) & \
             grads_finite(dz_grads)
         safe_apply_updates(state.gen, g_grads, finite)
@@ -289,7 +321,7 @@ class ShapeTrainer:
                                    'dz_total': dz_total.detach(),
                                    'finite': finite}
         metrics.update({f'g/{k}': v.detach() for k, v in lg.items()})
-        return state, metrics
+        return state, global_metrics(metrics, mesh)
 
 
 def synthetic_batch(gen: torch.Generator, cfg: ShapeConfig,

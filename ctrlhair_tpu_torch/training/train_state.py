@@ -34,7 +34,9 @@
 #   LandmarkTrainState  {'step', 'model'}
 # `step` and the counts are int32 0-d arrays there; here `step` is a Python
 # int (every step advances it, finite or not, so the host always knows it)
-# and the count a 0-d int32 tensor on the module's device.
+# and the count a 0-d int32 tensor on the module's device.  tensors() lists
+# every tensor of a state in a fixed order, for the data-parallel broadcast
+# from rank 0 (parallel/mesh.replicated).
 
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch
 import torch.nn as nn
 
 from ctrlhair_tpu_torch.convert import from_flax, to_flax
+from ctrlhair_tpu_torch.parallel.mesh import all_reduce_grads
 
 EPS = 1e-8
 
@@ -100,6 +103,12 @@ class ModelOpt:
 
     def params(self) -> List[torch.nn.Parameter]:
         return [p for _, p in self.module.named_parameters()]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Parameters, buffers (running statistics), Adam's moments and
+        count."""
+        return [*self.module.parameters(), *self.module.buffers(),
+                *self.mu.values(), *self.nu.values(), self.count]
 
     # ------------------------------------------------------- flax layout
     def _params_tree(self, values) -> Dict[str, Any]:
@@ -163,6 +172,11 @@ class SGDModelOpt(ModelOpt):
         self.trace = {k: torch.zeros_like(p)
                       for k, p in module.named_parameters()}
 
+    def tensors(self) -> List[torch.Tensor]:
+        """Parameters, buffers (running statistics) and the trace."""
+        return [*self.module.parameters(), *self.module.buffers(),
+                *self.trace.values()]
+
     def to_tree(self) -> Dict[str, Any]:
         params = dict(self.module.named_parameters())
         return {'params': self._params_tree(params),
@@ -204,6 +218,21 @@ def param_grads(loss: torch.Tensor, params, retain: bool = False
                                 allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(params, grads)]
+
+
+def reduce_grads(mesh, *grad_lists: Sequence[torch.Tensor]
+                 ) -> List[List[torch.Tensor]]:
+    """Each gradient list averaged over the data-parallel ranks, all of
+    them in one set of buckets (parallel/mesh.all_reduce_grads); the lists
+    as they are for mesh None.  Called before the finite gate, so a NaN on
+    one rank gates every rank's update."""
+    flat = all_reduce_grads([g for grads in grad_lists for g in grads],
+                            mesh)
+    out, i = [], 0
+    for grads in grad_lists:
+        out.append(flat[i:i + len(grads)])
+        i += len(grads)
+    return out
 
 
 def grads_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -259,6 +288,9 @@ class GANTrainState:
     def parts(self) -> Dict[str, ModelOpt]:
         return {'gen': self.gen, 'dis': self.dis, 'dis_noise': self.dis_noise}
 
+    def tensors(self) -> List[torch.Tensor]:
+        return [t for m in self.parts().values() for t in m.tensors()]
+
     def to_tree(self) -> Dict[str, Any]:
         return {'step': np.asarray(self.step, np.int32),
                 **{k: m.to_tree() for k, m in self.parts().items()}}
@@ -276,6 +308,9 @@ class PredictorTrainState:
     def __init__(self, step: int, model: ModelOpt):
         self.step = step
         self.model = model
+
+    def tensors(self) -> List[torch.Tensor]:
+        return self.model.tensors()
 
     def to_tree(self) -> Dict[str, Any]:
         stats = batch_stats(self.model.module)

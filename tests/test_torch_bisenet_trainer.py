@@ -289,7 +289,8 @@ def test_run_bisenet_on_cpu_and_its_refusals(tmp_path, monkeypatch):
     """run_bisenet.main at 32 px on the CPU: synthetic batches for three
     steps write a checkpoint the JAX package restores into its trainer's
     state; paired images and labels are read through SEANDataset; without a
-    card and without --device cpu it exits 2; --dp 2 is refused."""
+    card and without --device cpu it exits 2; --dp 2 without the
+    launcher exits 2."""
     from ctrlhair_tpu.utils import checkpoint as jckpt
     from ctrlhair_tpu_torch.training import run_bisenet
     d = str(tmp_path / 'synthetic')
@@ -321,5 +322,7 @@ def test_run_bisenet_on_cpu_and_its_refusals(tmp_path, monkeypatch):
         run_bisenet.main(['--synthetic', '--steps', '1', '--out-dir',
                           str(tmp_path / 'none')])
     assert e.value.code == 2
-    with pytest.raises(SystemExit, match='later slice'):
+    monkeypatch.delenv('WORLD_SIZE', raising=False)
+    with pytest.raises(SystemExit) as e:     # no launcher: no ranks
         run_bisenet.main(['--dp', '2', '--synthetic'])
+    assert e.value.code == 2

@@ -367,7 +367,8 @@ def test_run_sean_on_cpu_and_its_refusals(tmp_path, monkeypatch):
     """python -m ctrlhair_tpu_torch.training.run_sean on synthetic batches:
     three steps on the CPU write a checkpoint the JAX package restores into
     its own trainer's state and the port reads back equal; without a card
-    and without --device cpu it exits 2; --dp 2 is refused."""
+    and without --device cpu it exits 2; --dp 2 without the
+    launcher exits 2."""
     from ctrlhair_tpu_torch.training import run_sean
     d = str(tmp_path / 'sean')
     args = ['--synthetic', '--steps', '3', '--crop-size', '32', '--ngf',
@@ -389,5 +390,7 @@ def test_run_sean_on_cpu_and_its_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:
         run_sean.main(args)
     assert e.value.code == 2
-    with pytest.raises(SystemExit, match='later slice'):
+    monkeypatch.delenv('WORLD_SIZE', raising=False)
+    with pytest.raises(SystemExit) as e:     # no launcher: no ranks
         run_sean.main(['--dp', '2', '--synthetic'])
+    assert e.value.code == 2

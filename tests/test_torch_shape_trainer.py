@@ -209,7 +209,8 @@ def test_run_shape_on_cpu_and_its_refusals(tmp_path, monkeypatch):
     """run_shape.main on synthetic batches (the published ShapeConfig
     swapped for the tiny one): three steps on the CPU write a checkpoint
     the JAX package restores into its trainer's state; without a card and
-    without --device cpu it exits 2; --dp 2 is refused."""
+    without --device cpu it exits 2; --dp 2 without the
+    launcher exits 2."""
     from ctrlhair_tpu_torch import config as cfg_mod
     from ctrlhair_tpu_torch.training import run_shape
     tiny = port_cfg(TINY_SHAPE)
@@ -234,5 +235,7 @@ def test_run_shape_on_cpu_and_its_refusals(tmp_path, monkeypatch):
         run_shape.main(['--synthetic', '--steps', '1', '--out-dir',
                         str(tmp_path / 'none')])
     assert e.value.code == 2
-    with pytest.raises(SystemExit, match='later slice'):
+    monkeypatch.delenv('WORLD_SIZE', raising=False)
+    with pytest.raises(SystemExit) as e:     # no launcher: no ranks
         run_shape.main(['--dp', '2', '--synthetic'])
+    assert e.value.code == 2

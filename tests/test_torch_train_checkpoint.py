@@ -169,8 +169,8 @@ def test_run_scripts_on_cpu_and_their_refusals(tmp_path, monkeypatch,
     """python -m ctrlhair_tpu_torch.training.run_* on synthetic batches:
     three steps on the CPU write a checkpoint the JAX package restores into
     its own trainer's state; --sean-checkpoint loads a reference SEAN;
-    without a card and without --device cpu they exit 2; --dp 2 is
-    refused."""
+    without a card and without --device cpu they exit 2; --dp 2 without
+    the launcher exits 2."""
     from ctrlhair_tpu.config import (
         ColorTextureConfig as JaxCT, curliness_predictor_config,
         rgb_predictor_config)
@@ -218,5 +218,7 @@ def test_run_scripts_on_cpu_and_their_refusals(tmp_path, monkeypatch,
             main(['--synthetic', '--steps', '1', '--out-dir',
                   str(tmp_path / 'none')])
         assert e.value.code == 2
-    with pytest.raises(SystemExit, match='later slice'):
+    monkeypatch.delenv('WORLD_SIZE', raising=False)
+    with pytest.raises(SystemExit) as e:     # no launcher: no ranks
         run_color_texture.main(['--dp', '2', '--synthetic'])
+    assert e.value.code == 2
