@@ -65,7 +65,17 @@ Drives the port's four paths at the full default PipelineConfig() width:
      reduce alone by CUDA events; (k2) the face parser at 32 px on two
      gloo ranks on cuda:0 against one process on the global batch; (k3)
      run_bisenet under python -m torch.distributed.run --nproc_per_node 1,
-     resumed in this process.
+     resumed in this process;
+  7. tensor parallelism, phase (l), its launch counts set to 0 before it
+     and read after it: two gloo ranks on cuda:0 as make_mesh(2, tp=2)
+     (dp 1), the shape trainer of (e) on its first batches and the
+     colour/texture trainer at ColorTextureConfig() (batch 128,
+     lambda_rec_img off), each generator and discriminator sharded as
+     JAX's dry run shards them; two steps held to one process on the
+     card (in float64), the ranks' gathered trees bit-identical, a NaN
+     batch and a resume after step 1 bit-identical on both ranks; the bytes of trained
+     parameters a rank holds, collectives a step, tp against plain step ms
+     and each rank's peak memory.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -1903,6 +1913,12 @@ def phase_train_ct(smi: str, dp_cases: dict):
     log(f'[train] colour/texture checks: card against CPU {cpu_check} (bar '
         f'{TRAIN_CARD_BAR}); {checks}')
     dp_cases['color_texture'] = (make_trainer, batches)
+    # phase (l): the published config without SEAN, these batches' seeds
+    dp_cases.setdefault('tp', {})['color_texture'] = {
+        'family': 'color_texture', 'cfg': ColorTextureConfig(),
+        'label': 'ColorTextureConfig(), lambda_rec_img off', 'batches': None,
+        'batch': CT_BATCH,
+        'lr': {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_g}}
     return {'config': 'ColorTextureConfig(), lambda_rec_img={0: 1000.0}',
             'sean': 'SEANConfig()', 'batch': CT_BATCH,
             'trained_parameters': n_params, 'step_ms_rec_img_on': ms_on,
@@ -2213,8 +2229,12 @@ def phase_train_shape(batches, smi: str, dp_cases: dict) -> dict:
                ShapeTrainer(small, device='cuda', seed=SEED).draws(
                    0, SHAPE_BATCH)))
     dp_cases['shape'] = (make_trainer, batches)
-    return {'config': 'ShapeConfig(), kl_free_bits=0.25, lambda_geo=30, '
-                      'lambda_info=1', 'batch': SHAPE_BATCH, **rec}
+    label = 'ShapeConfig(), kl_free_bits=0.25, lambda_geo=30, lambda_info=1'
+    dp_cases.setdefault('tp', {})['shape'] = {
+        'family': 'shape', 'cfg': cfg, 'label': label,
+        'batches': batches[:TP_STEPS], 'batch': SHAPE_BATCH,
+        'lr': {'gen': cfg.lr_g, 'dis': cfg.lr_d, 'dis_noise': cfg.lr_dz}}
+    return {'config': label, 'batch': SHAPE_BATCH, **rec}
 
 
 def phase_train_bisenet(smi: str, dp_cases: dict) -> dict:
@@ -2778,6 +2798,284 @@ def phase_parallel(dp_cases: dict, smi: str):
     return read_launches('parallel', 0, 0), rec
 
 
+# ----------------------------------------------- tensor parallelism (l)
+# Phase (l): two gloo ranks on cuda:0 as make_mesh(2, tp=2) (dp 1; NCCL
+# takes one rank a card), the shape trainer at phase (e)'s config on its
+# first batches, and the colour/texture trainer at ColorTextureConfig(),
+# batch CT_BATCH, lambda_rec_img off (no SEAN: the frozen SEAN is not what
+# tp shards, and two copies of its step on one card buy nothing), the
+# batches of phase (a).  For each: rank 0 first takes TP_STEPS plain steps
+# in one process (float32, timed), then both ranks take TP_STEPS
+# tensor-parallel steps (float32, timed), the two ranks' gathered trees
+# bit-identical (a digest each); a NaN batch must leave the state
+# bit-identical on both ranks, and the whole tree after step 1 (gathered,
+# as rank 0 writes it in run_training; the disk round trip is the CPU
+# tests') read into a new state on both ranks and stepped on must equal
+# the unbroken run bit for bit (each rank's own slices compared: equal
+# slices are equal gathered trees, and a gather of the shape state over
+# gloo takes seconds).  The steps are held to one process with the models
+# computing in float64 on both sides, as the training phase holds the
+# shape step (trainer_phase): in float32 the shape step's own error
+# reaches the bar; TP_BAR of each leaf's scale, the noise exemption of
+# held_to_cpu.  Deterministic cuDNN, TF32 off.
+TP_WORLD, TP_SIZE, TP_STEPS, TP_BAR = 2, 2, 2, 1e-4
+
+
+def tp_trainer(family: str, cfg, device, mesh):
+    """(trainer, state, extra step arguments) of phase (l)'s families."""
+    from ctrlhair_tpu_torch.training.color_texture_trainer import (
+        ColorTextureTrainer)
+    from ctrlhair_tpu_torch.training.shape_trainer import ShapeTrainer
+    if family == 'shape':
+        trainer = ShapeTrainer(cfg, device=device, seed=SEED, mesh=mesh)
+        return trainer, trainer.init_state(SEED), ()
+    trainer = ColorTextureTrainer(cfg, device=device, seed=SEED, mesh=mesh)
+    state, preds = trainer.init_state(SEED)
+    return trainer, state, (preds,)
+
+
+def tp_batches(spec, device):
+    """Phase (l)'s batches of one family on `device`, and its NaN batch."""
+    if spec['family'] == 'shape':
+        with np.load(spec['batches']) as f:
+            batches = [{k: torch.from_numpy(f[f'{i}/{k}']).to(device)
+                        for k in ('target', 'face', 'hair', 'real')}
+                       for i in range(TP_STEPS)]
+        nan_at = ('face', (1, 3, 4, 0))
+    else:
+        from ctrlhair_tpu_torch.training.color_texture_trainer import (
+            synthetic_batch)
+        batches = [synthetic_batch(torch.Generator().manual_seed(100 + i),
+                                   spec['cfg'], spec['batch'], device)
+                   for i in range(TP_STEPS)]
+        nan_at = ('code', (3, 7))
+    nan_batch = {k: v.clone() for k, v in batches[0].items()}
+    nan_batch[nan_at[0]][nan_at[1]] = float('nan')
+    return batches, nan_batch
+
+
+def tree_digest(tree) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for path, a in tree_leaves(tree):
+        h.update('/'.join(path).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def param_bytes(state) -> int:
+    return sum(p.numel() * p.element_size() for m in trained_modules(state)
+               for p in m.parameters())
+
+
+def local_snapshot(state) -> list:
+    """A copy of every tensor of a train state (this rank's slices)."""
+    return [t.detach().clone() for t in state.tensors()]
+
+
+def same_tensors(state, snapshot) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(state.tensors(), snapshot,
+                                                 strict=True))
+
+
+def timed_steps(trainer, state, extra, batches, mesh=None):
+    """(state, metrics of the last, host ms a step, collectives a step)."""
+    ms, coll, metrics = [], [], None
+    for b in batches:
+        before = 0 if mesh is None else mesh.collectives
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, b, *extra)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(0 if mesh is None else mesh.collectives - before)
+    return state, metrics, ms, coll
+
+
+def l_rank(mesh, specs):
+    """Phase (l) on one rank: for each family, on rank 0 the plain steps in
+    one process (float32, timed; then with the models in float64, the
+    reference), on both ranks the tensor-parallel steps (float32, timed;
+    the NaN batch; the resume from the gathered tree after step 1; then in
+    float64, held to the reference on rank 0); the readings."""
+    from ctrlhair_tpu_torch.models.layers import set_compute_dtype
+    from ctrlhair_tpu_torch.parallel.mesh import is_main
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    main = is_main(mesh)
+    out = {}
+
+    def float64(trainer, state, extra):
+        for module in trained_modules(state):
+            set_compute_dtype(module, torch.float64)
+        return trainer, state, extra
+
+    for name, spec in specs.items():
+        family, cfg, dev = spec['family'], spec['cfg'], mesh.device
+        batches, nan_batch = tp_batches(spec, dev)
+        rec, seconds = {}, {}
+        t0 = time.perf_counter()
+
+        def lap(key):
+            nonlocal t0
+            torch.cuda.synchronize()
+            seconds[key] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        def free():
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        if main:        # one process, on this rank alone
+            trainer, state, extra = tp_trainer(family, cfg, dev, None)
+            rec['plain_param_bytes'] = param_bytes(state)
+            torch.cuda.reset_peak_memory_stats()
+            state, _, rec['plain_ms'], _ = timed_steps(
+                trainer, state, extra, batches)
+            rec['plain_peak_bytes'] = torch.cuda.max_memory_allocated()
+            trainer, state, extra = float64(*tp_trainer(family, cfg, dev,
+                                                        None))
+            init_tree = state.to_tree()
+            state, plain_m, _, _ = timed_steps(trainer, state, extra,
+                                               batches)
+            plain_tree = state.to_tree()
+            plain_m = {k: v.cpu() for k, v in plain_m.items()}
+            del trainer, state, extra
+            free()
+            lap('plain')
+        trainer, state, extra = tp_trainer(family, cfg, dev, mesh)
+        rec['tp_param_bytes'] = param_bytes(state)
+        torch.cuda.reset_peak_memory_stats()
+        state, tp_m, rec['tp_ms'], rec['collectives'] = timed_steps(
+            trainer, state, extra, batches, mesh)
+        rec['tp_peak_bytes'] = torch.cuda.max_memory_allocated()
+        if not bool(tp_m['finite']):
+            raise AssertionError(f'(l) {name}: non-finite tp step')
+        lap('tp_steps')
+        rec['digest'] = tree_digest(state.to_tree())
+        # the checks below compare this rank's own tensors (its slices):
+        # equal slices on every rank are equal gathered trees
+        unbroken = local_snapshot(state)
+        lap('tp_gather')
+        state, m = trainer.train_step(state, nan_batch, *extra)
+        rec['nan_bit_identical'] = (
+            not bool(m['finite']) and state.step == TP_STEPS + 1
+            and same_tensors(state, unbroken))
+        del trainer, state, extra
+        free()
+        lap('nan')
+        # the whole tree after step 1 (gathered on every rank, as rank 0
+        # writes it) read into a new state, which takes its slices and the
+        # second step
+        trainer, state, extra = tp_trainer(family, cfg, dev, mesh)
+        state, _ = trainer.train_step(state, batches[0], *extra)
+        tree = state.to_tree()
+        trainer, state, extra = tp_trainer(family, cfg, dev, mesh)
+        state.load_tree(tree)
+        del tree
+        for b in batches[1:]:
+            state, _ = trainer.train_step(state, b, *extra)
+        rec['resume_bit_identical'] = (state.step == TP_STEPS
+                                       and same_tensors(state, unbroken))
+        del trainer, state, extra, unbroken
+        free()
+        lap('resume')
+        trainer, state, extra = float64(*tp_trainer(family, cfg, dev, mesh))
+        state, tp_m, _, _ = timed_steps(trainer, state, extra, batches,
+                                        mesh)
+        tp_tree = state.to_tree()
+        del trainer, state, extra
+        free()
+        if main:
+            rec['held'] = held_to_cpu(
+                tp_tree, {k: v.cpu() for k, v in tp_m.items()}, plain_tree,
+                plain_m, init_tree, spec['lr'], gate=False, bar=TP_BAR)
+            del plain_tree, init_tree
+        del tp_tree
+        free()
+        lap('float64_held')
+        rec['seconds'] = seconds
+        out[name] = rec
+    return out
+
+
+def phase_tensor_parallel(tp_cases: dict, smi: str):
+    """Phase (l), as the comment above says; the launch counts set to 0
+    before it and read after it (no kernel of the port runs on this
+    path)."""
+    import tempfile
+    from ctrlhair_tpu_torch.parallel.dryrun import run_on_ranks
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = {}
+        for name, case in tp_cases.items():
+            spec = {k: case[k] for k in ('family', 'cfg', 'lr', 'batch')}
+            spec['tmp'] = tmp
+            if case.get('batches') is not None:
+                spec['batches'] = os.path.join(tmp, f'{name}.npz')
+                np.savez(spec['batches'], **{
+                    f'{i}/{k}': v.cpu().numpy()
+                    for i, b in enumerate(case['batches'][:TP_STEPS])
+                    for k, v in b.items()})
+            specs[name] = spec
+        per_rank = run_on_ranks(l_rank, TP_WORLD, specs, device='cuda:0',
+                                backend='gloo', tp=TP_SIZE,
+                                deadline_s=900.0, rank_timeout_s=600.0)
+    seconds = time.perf_counter() - t0
+    rec = {}
+    for name in specs:
+        r0, r1 = (r[name] for r in per_rank)
+        held = r0['held']
+        if r0['digest'] != r1['digest'] or not all(
+                r[k] for r in (r0, r1) for k in (
+                    'nan_bit_identical', 'resume_bit_identical')) or \
+                not held['state_max_scaled_err'] <= TP_BAR or \
+                not held['loss_max_scaled_err'] <= TP_BAR:
+            raise AssertionError(f'(l) {name}: ranks {r0["digest"][:12]} / '
+                                 f'{r1["digest"][:12]}, held {held}, NaN '
+                                 f'{r0["nan_bit_identical"]} / '
+                                 f'{r1["nan_bit_identical"]}, resume '
+                                 f'{r0["resume_bit_identical"]} / '
+                                 f'{r1["resume_bit_identical"]}')
+        plain = float(np.median(r0['plain_ms'][1:]))
+        tp_ms = float(np.median(r0['tp_ms'][1:]))
+        rec[name] = {
+            'config': tp_cases[name]['label'],
+            'batch': tp_cases[name]['batch'], 'held': held,
+            'param_bytes': {'one_process': r0['plain_param_bytes'],
+                            'rank0': r0['tp_param_bytes'],
+                            'rank1': r1['tp_param_bytes']},
+            'collectives_per_step': r0['collectives'][-1],
+            'plain_step_ms': r0['plain_ms'], 'tp_step_ms': r0['tp_ms'],
+            'plain_ms': plain, 'tp_ms': tp_ms,
+            'peak_bytes': {'one_process': r0['plain_peak_bytes'],
+                           'rank0': r0['tp_peak_bytes'],
+                           'rank1': r1['tp_peak_bytes']},
+            'seconds': r0['seconds']}
+        log(f'[tensor parallel] l {name} {rec[name]["config"]}, batch '
+            f'{rec[name]["batch"]}, make_mesh({TP_WORLD}, tp={TP_SIZE}) on '
+            f'{TP_WORLD} gloo ranks on cuda:0: {TP_STEPS} steps with the '
+            'models in float64 held to one process '
+            f'{held["state_max_scaled_err"]:.3g} at {held["worst_leaf"]} '
+            f'(losses {held["loss_max_scaled_err"]:.3g}; bar {TP_BAR}; '
+            f'{held["noise_gradient_entries"]} noise entries), ranks '
+            'bit-identical, NaN batch and resume bit-identical on both; '
+            f'trained parameter bytes rank 0 {r0["tp_param_bytes"]}, rank 1 '
+            f'{r1["tp_param_bytes"]} against {r0["plain_param_bytes"]} in '
+            f'one process; {r0["collectives"][-1]} collectives a step; tp '
+            f'step {tp_ms:.3f} ms against plain {plain:.3f} ms (step '
+            f'{TP_STEPS} of {TP_STEPS}, deterministic cuDNN); peak memory '
+            f'rank 0 {r0["tp_peak_bytes"]} B, rank 1 {r1["tp_peak_bytes"]} '
+            f'B, one process {r0["plain_peak_bytes"]} B; seconds '
+            + ', '.join(f'{k} {v:.1f}' for k, v in r0['seconds'].items())
+            + f' ({smi})')
+    rec['seconds'] = seconds
+    log(f'[time] tensor parallel phase (l): {seconds:.1f} s')
+    return read_launches('tensor_parallel', 0, 0), rec
+
+
 def phase_training(smi: str, dp_cases: dict):
     """The training slice: (d) the warp pool, whose warps launch K2, (e)
     the shape trainer on it, (a) colour/texture, (b) predictors, (f) the
@@ -3007,6 +3305,13 @@ def main() -> int:
     p_launches, parallel = phase_parallel(dp_cases, smi)
     t_phase['parallel'] = time.perf_counter() - t_start - sum(
         t_phase.values())
+
+    # 11. phase (l), tensor parallelism: both counts set to 0 before it and
+    # read after it
+    l_launches, tensor_parallel = phase_tensor_parallel(dp_cases.pop('tp'),
+                                                        smi)
+    t_phase['tensor_parallel'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
     log('[time] phases, seconds: '
         + ', '.join(f'{k} {v:.1f}' for k, v in t_phase.items()))
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
@@ -3018,13 +3323,15 @@ def main() -> int:
         'replaces': 'ctrlhair_tpu/ops/poisson_pallas.py:33',
         'launches': launches + b_launches['masked_cg']
         + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values())
-        + t_launches['masked_cg'] + p_launches['masked_cg'],
+        + t_launches['masked_cg'] + p_launches['masked_cg']
+        + l_launches['masked_cg'],
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
                              'deployment': d_launches['masked_cg'],
                              **s_launches['masked_cg'],
                              'training': t_launches['masked_cg'],
-                             'parallel': p_launches['masked_cg']},
+                             'parallel': p_launches['masked_cg'],
+                             'tensor_parallel': l_launches['masked_cg']},
         **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
@@ -3032,13 +3339,15 @@ def main() -> int:
         'replaces': 'ctrlhair_tpu/ops/raster_pallas.py:146',
         'launches': raster_launches + b_launches['raster_uv']
         + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values())
-        + t_launches['raster_uv'] + p_launches['raster_uv'],
+        + t_launches['raster_uv'] + p_launches['raster_uv']
+        + l_launches['raster_uv'],
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
                              'deployment': d_launches['raster_uv'],
                              **s_launches['raster_uv'],
                              'training': t_launches['raster_uv'],
-                             'parallel': p_launches['raster_uv']},
+                             'parallel': p_launches['raster_uv'],
+                             'tensor_parallel': l_launches['raster_uv']},
         **raster_entry,
     }]
     if set(kernels[0]) != set(kernels[1]):
@@ -3055,6 +3364,7 @@ def main() -> int:
         'backend_check': {**warp_check, **routes_check},
         'deployment': deployment, 'serving': serving,
         'training': training, 'parallel': parallel,
+        'tensor_parallel': tensor_parallel,
         'phase_seconds': t_phase,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)

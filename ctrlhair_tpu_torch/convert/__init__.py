@@ -106,6 +106,60 @@ def load_variables(module: nn.Module, family: str,
                            strict=True)
 
 
+def _flax_leaf(owner: nn.Module, family: Optional[str],
+               mod_path: str, leaf: str) -> Tuple[str, str, Optional[str]]:
+    """(collection, flax leaf name, layout) of one torch tensor: layout
+    'dense' [out,in] -> [in,out], 'conv' [out,in,kh,kw] -> [kh,kw,in,out],
+    'conv_transpose' [in,out,kh,kw] -> [kh,kw,in,out] flipped, None kept.
+    `family` None skips the check that from_flax would invert a
+    ConvTranspose."""
+    path = tuple(mod_path.split('.')) if mod_path else ()
+    key = '.'.join(path + (leaf,))
+    if leaf in ('running_mean', 'running_var'):
+        return 'batch_stats', leaf[len('running_'):], None
+    if leaf == 'weight' and isinstance(owner, nn.ConvTranspose2d):
+        if family is not None and \
+                (family,) + path not in CONV_TRANSPOSE_PATHS:
+            raise ValueError(f'{family}.{key}: a ConvTranspose from_flax '
+                             'would not invert')
+        return 'params', 'kernel', 'conv_transpose'
+    if leaf == 'weight' and isinstance(owner, nn.Conv2d):
+        return 'params', 'kernel', 'conv'
+    if leaf == 'weight' and isinstance(owner, nn.Linear):
+        return 'params', 'kernel', 'dense'
+    if leaf == 'weight':                         # BatchNorm, LayerNorm
+        return 'params', 'scale', None
+    if leaf not in _KEEP:
+        raise KeyError(f'unknown parameter {family}.{key}')
+    return 'params', leaf, None
+
+
+def flax_param_layout(module: nn.Module
+                      ) -> Dict[str, Tuple[Tuple[str, ...],
+                                           Tuple[int, ...], int]]:
+    """{torch parameter name: (flax path ('params', ..., leaf), the
+    shape in flax's layout, the torch dim that holds the flax layout's
+    last axis)} of every parameter of `module`, by to_flax's rules."""
+    owners = dict(module.named_modules())
+    out = {}
+    for key, p in module.named_parameters():
+        mod_path, _, leaf = key.rpartition('.')
+        collection, name, layout = _flax_leaf(owners[mod_path], None,
+                                              mod_path, leaf)
+        shape = tuple(p.shape)
+        if layout == 'dense':
+            shape, last = shape[::-1], 0
+        elif layout in ('conv', 'conv_transpose'):
+            out_dim = 0 if layout == 'conv' else 1
+            shape = shape[2:] + (shape[1 - out_dim], shape[out_dim])
+            last = out_dim
+        else:
+            last = len(shape) - 1
+        path = tuple(mod_path.split('.')) if mod_path else ()
+        out[key] = ((collection,) + path + (name,), shape, last)
+    return out
+
+
 def to_flax(module: nn.Module, family: str,
             values: Optional[Mapping[str, torch.Tensor]] = None
             ) -> Dict[str, Any]:
@@ -119,29 +173,17 @@ def to_flax(module: nn.Module, family: str,
     out: Dict[str, Any] = {}
     for key, tensor in values.items():
         mod_path, _, leaf = key.rpartition('.')
-        owner = owners[mod_path]
         value = tensor.detach().float().cpu().numpy()
-        path = tuple(mod_path.split('.')) if mod_path else ()
-        if leaf in ('running_mean', 'running_var'):
-            collection, name = 'batch_stats', leaf[len('running_'):]
-        else:
-            collection, name = 'params', leaf
-            if leaf == 'weight' and isinstance(owner, nn.ConvTranspose2d):
-                if (family,) + path not in CONV_TRANSPOSE_PATHS:
-                    raise ValueError(f'{family}.{key}: a ConvTranspose '
-                                     'from_flax would not invert')
-                name, value = 'kernel', value.transpose(2, 3, 0, 1)[::-1,
-                                                                    ::-1]
-            elif leaf == 'weight' and isinstance(owner, nn.Conv2d):
-                name, value = 'kernel', value.transpose(2, 3, 1, 0)
-            elif leaf == 'weight' and isinstance(owner, nn.Linear):
-                name, value = 'kernel', value.T
-            elif leaf == 'weight':               # BatchNorm, LayerNorm
-                name = 'scale'
-            elif leaf not in _KEEP:
-                raise KeyError(f'unknown parameter {family}.{key}')
+        collection, name, layout = _flax_leaf(owners[mod_path], family,
+                                              mod_path, leaf)
+        if layout == 'conv_transpose':
+            value = value.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif layout == 'conv':
+            value = value.transpose(2, 3, 1, 0)
+        elif layout == 'dense':
+            value = value.T
         node = out.setdefault(collection, {})
-        for part in path:
+        for part in (tuple(mod_path.split('.')) if mod_path else ()):
             node = node.setdefault(part, {})
         node[name] = np.array(value, copy=True)   # not a view of live data
     return out

@@ -2,8 +2,9 @@
 # reference's PyTorch checkpoints, into a HairEditor.
 #
 # Port of ctrlhair_tpu/convert/load.py (load_native_params,
-# load_trained_root, load_reference_params; the last one at the end of this
-# file): each family's checkpoint directory holds the
+# load_trained_root, load_reference_params and load_reference_tree; the
+# last two at the end of this file): each family's checkpoint directory
+# holds the
 # manifest and `%07d.ckpt` files of utils/checkpoint.py.  Two contracts
 # exist, told apart by the keys of the decoded tree:
 #   * deployment trees, as scripts/train_soak.py ships them: colour/texture
@@ -246,3 +247,40 @@ def load_reference_params(editor, *,
     if style_fallback_dir and os.path.isdir(style_fallback_dir):
         editor.load_style_fallback(style_fallback_dir)
     return loaded
+
+
+def load_reference_tree(editor, root: str) -> Dict[str, str]:
+    """load_reference_params from the reference repository's on-disk
+    layout rooted at `root`: SEAN's and BiSeNet's checkpoints under
+    external_model_params, each branch's newest checkpoint (its
+    `latest_checkpoint` manifest, else the last `*.ckpt` by name) under
+    model_trained, the median style codes under sean_codes."""
+
+    def branch_ckpt(subdir):
+        d = os.path.join(root, subdir, 'checkpoints')
+        if not os.path.isdir(d):
+            return None
+        manifest = os.path.join(d, 'latest_checkpoint')
+        if os.path.exists(manifest):
+            with open(manifest) as f:
+                return os.path.join(d, f.readline().strip())
+        cands = sorted(f for f in os.listdir(d) if f.endswith('.ckpt'))
+        return os.path.join(d, cands[-1]) if cands else None
+
+    return load_reference_params(
+        editor,
+        sean_path=os.path.join(
+            root, 'external_model_params', 'sean_checkpoints',
+            'CelebA-HQ_pretrained', 'latest_net_G.pth'),
+        bisenet_path=os.path.join(
+            root, 'external_model_params', 'face_parsing_79999_iter.pth'),
+        color_texture_ckpt=branch_ckpt(
+            'model_trained/color_texture/045__color_texture_final'),
+        shape_ckpt=branch_ckpt(
+            'model_trained/shape/054__succeed__049__gan_fake_0.5_from_noise'),
+        rgb_predictor_ckpt=branch_ckpt(
+            'model_trained/color_encoder/p004___pca_std'),
+        curliness_predictor_ckpt=branch_ckpt(
+            'model_trained/curliness_classifier/p002___curliness'),
+        style_fallback_dir=os.path.join(
+            root, 'sean_codes', 'styles_test', 'mean_style_code', 'median'))

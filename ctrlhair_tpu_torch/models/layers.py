@@ -20,7 +20,11 @@
 # `set_compute_dtype` switches a built model's activations to another
 # dtype, as building it with `dtype=` does.  Under data parallelism
 # (`set_sync`, flax's BatchNorm(axis_name='dp')) a train-mode BatchNorm
-# takes the statistics of the global batch.
+# takes the statistics of the global batch.  Under tensor parallelism
+# (`set_tp`, the placement of JAX's shard_params) a Conv, ConvTranspose or
+# Dense whose kernel JAX shards over 'tp' holds this rank's slice of the
+# output features and runs column-parallel: y = tp_gather(op(tp_copy(x),
+# W_local)) + bias, its bias whole.
 
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ctrlhair_tpu_torch.parallel.mesh import global_sum
+from ctrlhair_tpu_torch.parallel.mesh import (
+    global_sum, sharded_params, tp_copy, tp_gather, tp_local)
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -71,7 +76,28 @@ def init_kernel_(w: torch.Tensor, kind: str, fan_in: int,
             raise ValueError(f'unknown kernel init: {kind}')
 
 
-class Conv(nn.Conv2d):
+class _ColumnParallel:
+    """The column-parallel mode of a layer (set_tp): `tp_mesh` None, or the
+    mesh whose tp rank's slice of the output features the weight holds
+    (along WEIGHT_DIM); the output's features lie along OUT_DIM."""
+    WEIGHT_DIM = 0
+    OUT_DIM = 1
+    tp_mesh = None
+
+    def _column_parallel(self, op, x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+        mesh = self.tp_mesh
+        if mesh is None:
+            return op(x, weight, bias)
+        y = tp_gather(op(tp_copy(x, mesh), weight, None), mesh,
+                      self.OUT_DIM % x.dim())
+        if bias is None:
+            return y
+        return y + bias.view((-1,) + (1,) * (y.dim() - 1 - self.OUT_DIM
+                                             % y.dim()))
+
+
+class Conv(_ColumnParallel, nn.Conv2d):
     """flax nn.Conv counterpart: Conv2d run in the compute dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
@@ -94,13 +120,15 @@ class Conv(nn.Conv2d):
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return F.conv2d(x.to(cd), self.weight.to(cd), bias, self.stride,
-                        self.padding)
+        return self._column_parallel(
+            lambda x, w, b: F.conv2d(x, w, b, self.stride, self.padding),
+            x.to(cd), self.weight.to(cd), bias)
 
 
-class ConvTranspose(nn.ConvTranspose2d):
+class ConvTranspose(_ColumnParallel, nn.ConvTranspose2d):
     """flax nn.ConvTranspose counterpart (weights in torch's [in,out,kh,kw]
     layout, i.e. the flax kernel spatially flipped; see convert.py)."""
+    WEIGHT_DIM = 1
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
                  padding: int, output_padding: int, bias: bool = True,
@@ -121,13 +149,16 @@ class ConvTranspose(nn.ConvTranspose2d):
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return F.conv_transpose2d(x.to(cd), self.weight.to(cd), bias,
-                                  self.stride, self.padding,
-                                  self.output_padding)
+        return self._column_parallel(
+            lambda x, w, b: F.conv_transpose2d(x, w, b, self.stride,
+                                               self.padding,
+                                               self.output_padding),
+            x.to(cd), self.weight.to(cd), bias)
 
 
-class Dense(nn.Linear):
+class Dense(_ColumnParallel, nn.Linear):
     """flax nn.Dense counterpart: Linear run in the compute dtype."""
+    OUT_DIM = -1
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
@@ -146,7 +177,8 @@ class Dense(nn.Linear):
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return F.linear(x.to(cd), self.weight.to(cd), bias)
+        return self._column_parallel(F.linear, x.to(cd), self.weight.to(cd),
+                                     bias)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -509,6 +541,35 @@ def set_sync(module: nn.Module, mesh) -> None:
     for m in module.modules():
         if isinstance(m, RunningBatchNorm):
             m.mesh = mesh
+
+
+def set_tp(module: nn.Module, mesh) -> None:
+    """Shard `module` over the tp axis of `mesh` as JAX's shard_params
+    places it: every weight that parallel.mesh.param_shardings shards (a
+    Conv, ConvTranspose or Dense kernel whose output features split over
+    tp) becomes this rank's slice, and its layer runs column-parallel.
+    Any other sharded parameter raises.  mesh None or tp = 1: nothing
+    changes."""
+    owners = dict(module.named_modules())
+    for name, dim in sharded_params(module, mesh).items():
+        mod_path, _, leaf = name.rpartition('.')
+        owner = owners[mod_path]
+        if not isinstance(owner, _ColumnParallel) or leaf != 'weight' \
+                or dim != owner.WEIGHT_DIM or owner.tp_mesh is not None:
+            raise ValueError(f'set_tp: {name} cannot run column-parallel')
+        w = owner.weight
+        owner.weight = nn.Parameter(tp_local(w.detach(), mesh, dim).clone(),
+                                    requires_grad=w.requires_grad)
+        owner.tp_mesh = mesh
+
+
+def tp_shards(module: nn.Module) -> Dict[str, Tuple[object, int]]:
+    """{parameter name: (mesh, dim)} of the weights under `module` that
+    hold a tp rank's slice (set_tp)."""
+    return {f'{path}.weight' if path else 'weight':
+            (m.tp_mesh, m.WEIGHT_DIM)
+            for path, m in module.named_modules()
+            if isinstance(m, _ColumnParallel) and m.tp_mesh is not None}
 
 
 def init_parameters_(module: nn.Module, gen: torch.Generator) -> None:

@@ -1,7 +1,6 @@
 # SEAN: the Zencoder style encoder and the ACE/SPADE generator.
 #
-# Port of ctrlhair_tpu/models/sean.py (ConvEncoder, unused by the editor and
-# the trainer, is not ported).  Inside, feature maps are NCHW; the public
+# Port of ctrlhair_tpu/models/sean.py.  Inside, feature maps are NCHW; the public
 # entry points keep the JAX layouts: images [N,H,W,3], labels [N,H,W],
 # codes [N,19,D].
 #   * encode = Zencoder + one masked-mean region pool (a batched matmul),
@@ -30,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ctrlhair_tpu_torch.config import SEANConfig
 from ctrlhair_tpu_torch.models.layers import (
-    InstanceNorm, RunningBatchNorm, TorchConv, TorchConvTranspose,
+    Dense, InstanceNorm, RunningBatchNorm, TorchConv, TorchConvTranspose,
     leaky_relu)
 from ctrlhair_tpu_torch.ops.resize import (
     downsample_label_pyramid, resize_nearest, upsample2x_nearest)
@@ -180,8 +179,15 @@ class ACE(nn.Module):
         weight = conv.conv.weight.to(cd)                   # [C,D,3,3]
         c = weight.shape[0]
         folded = torch.einsum('cdyx,nrd->ncryx', weight, mu)
-        out = F.conv2d(seg.to(cd).reshape(1, n * r, h, w),
-                       folded.reshape(n * c, r, 3, 3), padding=1, groups=n)
+        x = seg.to(cd).reshape(1, n * r, h, w)
+        if h * w == 1:
+            # on 1x1 maps the reshape is a view whose strides read as
+            # channels-last, and the CPU's float64 convolution (slow_conv2d)
+            # then refuses its own weight gradient; larger maps are copied
+            # by the reshape
+            x = x.clone(memory_format=torch.contiguous_format)
+        out = F.conv2d(x, folded.reshape(n * c, r, 3, 3), padding=1,
+                       groups=n)
         return out.reshape(n, c, h, w) + conv.conv.bias.to(cd).view(1, c,
                                                                       1, 1)
 
@@ -278,6 +284,42 @@ class SEANGenerator(nn.Module):
                 x = upsample2x_nearest(x)
         x = self.conv_img(leaky_relu(x))
         return torch.tanh(x).float()
+
+
+class ConvEncoder(nn.Module):
+    """Image -> (mu, logvar), SEAN's VAE encoder: six stride-2 convs
+    (ngf, 2ngf, 4ngf, 8ngf, 8ngf, 8ngf) each with InstanceNorm and leaky
+    ReLU, flattened in flax's [N,H,W,C] order, then two Dense heads.
+    Unused by the editor and the trainers, as in the JAX package; its
+    parameters take flax's layout (layer{i}.conv, fc_mu, fc_var), so
+    convert carries them.  flax sizes the heads from the first input; here
+    they are sized for `img_size` (default cfg.crop_size)."""
+
+    def __init__(self, cfg: SEANConfig, latent_dim: int = 256,
+                 img_size: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        ndf = cfg.ngf
+        chans = [ndf, ndf * 2, ndf * 4, ndf * 8, ndf * 8, ndf * 8]
+        size = cfg.crop_size if img_size is None else img_size
+        cin = 3
+        for i, c in enumerate(chans):
+            self.add_module(f'layer{i}', TorchConv(cin, c, 3, 2, 1,
+                                                   dtype=dtype))
+            cin, size = c, (size - 1) // 2 + 1
+        self.norm = InstanceNorm(dtype=dtype)
+        self.n_layers = len(chans)
+        self.fc_mu = Dense(cin * size * size, latent_dim, dtype=dtype)
+        self.fc_var = Dense(cin * size * size, latent_dim, dtype=dtype)
+
+    def forward(self, img: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """img [N,H,W,3] -> (mu, logvar) [N, latent_dim]."""
+        x = img.permute(0, 3, 1, 2)
+        for i in range(self.n_layers):
+            x = leaky_relu(self.norm(getattr(self, f'layer{i}')(x)))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.fc_mu(x), self.fc_var(x)
 
 
 class SEAN(nn.Module):

@@ -2,12 +2,13 @@
 # tests.
 #
 # Port of __graft_entry__.dryrun_multichip: one training step of each of
-# the four data-parallel trainer families (colour/texture, the shape
-# VAE-GAN, the face parser with synced BatchNorm, SEAN with synced
-# BatchNorm and spectral norm) at that function's tiny configs, the global
-# batch 2 n sharded over n gloo ranks on the CPU (dp = n; the JAX dry run's
-# tp = 2 placement is not ported: ROADMAP.md, section 1), each step finite,
-# a progress line per family.
+# the four trainer families (colour/texture, the shape VAE-GAN, the face
+# parser with synced BatchNorm, SEAN with synced BatchNorm and spectral
+# norm) at that function's tiny configs over n gloo ranks on the CPU, as a
+# ('dp', 'tp') mesh with tp = 2 for an even n (else 1): the global batch
+# 2 n sharded over dp; the colour/texture and shape generators and
+# discriminators sharded over tp, the face parser and SEAN whole on every
+# tp rank; each step finite, a progress line per family.
 #
 #   python -m ctrlhair_tpu_torch.parallel.dryrun [N]
 #
@@ -35,16 +36,16 @@ import torch
 RANK_TIMEOUT_S = 60.0
 
 
-def _rank_main(fn, rank: int, world: int, store: str, results, device,
-               backend, args) -> None:
+def _rank_main(fn, rank: int, world: int, tp: int, store: str, results,
+               device, backend, timeout, args) -> None:
     import torch.distributed as dist
     from ctrlhair_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
     torch.set_num_threads(1)
     try:
         dev = initialize_runtime(device, init_method=f'file://{store}',
                                  world_size=world, rank=rank,
-                                 backend=backend, timeout=RANK_TIMEOUT_S)
-        out = fn(make_mesh(world, device=dev), *args)
+                                 backend=backend, timeout=timeout)
+        out = fn(make_mesh(world, tp=tp, device=dev), *args)
         results.put((rank, True, out))
     except BaseException:       # reported to the parent, which re-raises
         results.put((rank, False, traceback.format_exc()))
@@ -54,21 +55,24 @@ def _rank_main(fn, rank: int, world: int, store: str, results, device,
 
 
 def run_on_ranks(fn: Callable, world: int, *args, device: str = 'cpu',
-                 backend: str = 'gloo', deadline_s: float = 300.0
+                 backend: str = 'gloo', deadline_s: float = 300.0,
+                 tp: int = 1, rank_timeout_s: float = RANK_TIMEOUT_S
                  ) -> List[Any]:
     """[fn(mesh, *args) of each rank] from `world` spawned processes, one
     rank each, on `device` ('cpu', or one CUDA device that every rank
-    shares, such as 'cuda:0') over `backend`.  fn and args are pickled (fn
-    a module-level function).  Raises the first rank's error, or
-    TimeoutError past `deadline_s`."""
+    shares, such as 'cuda:0') over `backend`, the mesh make_mesh(world,
+    tp).  fn and args are pickled (fn a module-level function).  Raises
+    the first rank's error, or TimeoutError past `deadline_s`; a
+    collective that waits longer than `rank_timeout_s` fails its rank."""
     ctx = multiprocessing.get_context('spawn')
     results = ctx.Queue()
     out, failure = {}, None
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, 'store')
         procs = [ctx.Process(target=_rank_main,
-                             args=(fn, r, world, store, results, device,
-                                   backend, args), daemon=True)
+                             args=(fn, r, world, tp, store, results, device,
+                                   backend, rank_timeout_s, args),
+                             daemon=True)
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -119,18 +123,19 @@ def _dryrun_rank(mesh) -> List[str]:
 
     from ctrlhair_tpu_torch.config import (
         BiSeNetConfig, ColorTextureConfig, SEANConfig, ShapeConfig)
-    from ctrlhair_tpu_torch.parallel.mesh import replicated, shard_batch
+    from ctrlhair_tpu_torch.parallel.mesh import (
+        is_main, replicated, shard_batch)
     from ctrlhair_tpu_torch.training import (
         color_texture_trainer as ctt, shape_trainer as sht)
     from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
     from ctrlhair_tpu_torch.training.sean_trainer import SEANTrainer
 
     t0 = time.time()
-    n = 2 * mesh.world
+    n = 2 * mesh.world * mesh.tp
     done = []
 
     def log(msg):
-        if mesh.rank == 0:
+        if is_main(mesh):
             print(f'[dryrun +{time.time() - t0:7.1f}s] {msg}', flush=True)
 
     def step(name, trainer, state, batch, *extra):
@@ -143,7 +148,7 @@ def _dryrun_rank(mesh) -> List[str]:
         log(f'family {len(done)}/4 {name}: train step OK'
             + (' - DRYRUN COMPLETE' if len(done) == 4 else ''))
 
-    log(f'mesh ready: dp={mesh.world}, gloo on the CPU')
+    log(f'mesh ready: dp={mesh.world}, tp={mesh.tp}, gloo on the CPU')
     cfg = ColorTextureConfig(style_dim=64, g_hidden_dim=32, d_hidden_dim=32)
     trainer = ctt.ColorTextureTrainer(cfg, device='cpu', mesh=mesh)
     state, pred = trainer.init_state(0)
@@ -182,8 +187,11 @@ def _dryrun_rank(mesh) -> List[str]:
 
 def dryrun_multichip(n_devices: int, deadline_s: float = 600.0) -> None:
     """One step of each trainer family over `n_devices` gloo ranks on the
-    CPU (dp = n_devices), each finite; raises otherwise."""
-    done = run_on_ranks(_dryrun_rank, n_devices, deadline_s=deadline_s)
+    CPU (tp = 2 for an even count, as JAX's dry run takes it, else 1; dp
+    the rest), each finite; raises otherwise."""
+    tp = 2 if n_devices % 2 == 0 else 1
+    done = run_on_ranks(_dryrun_rank, n_devices, deadline_s=deadline_s,
+                        tp=tp)
     if any(d != ['color_texture', 'shape', 'bisenet', 'sean']
            for d in done):
         raise AssertionError(f'dry run: families done per rank {done}')

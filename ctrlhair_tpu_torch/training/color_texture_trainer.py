@@ -35,6 +35,10 @@
 # The moment terms, the weighted BCE's normaliser and lambda_rec_img (the
 # global batch's first rec_img_subset rows, a ratio of sums) come from
 # global sums; the other terms are per-sample means and stay local.
+# Under tensor parallelism (a mesh with tp > 1) the generator and the
+# discriminator are sharded as JAX's dry run shards them (shard_params);
+# the latent-prior discriminator and the frozen predictors and SEAN stay
+# whole on every tp rank, and the draws are the same on every tp rank.
 
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ from ctrlhair_tpu_torch.models.color_texture import (
     CTDiscriminator, CTDiscriminatorNoise, Predictor, make_generator)
 from ctrlhair_tpu_torch.models.layers import init_parameters_
 from ctrlhair_tpu_torch.parallel.mesh import (
-    all_gather_fields, global_metrics, global_sum, local_rows, world_size)
+    all_gather_fields, global_metrics, global_sum, local_rows, shard_params,
+    tp_all, world_size)
 from ctrlhair_tpu_torch.pipeline.editor import resolve_device
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.predictor_trainer import (
@@ -111,6 +116,8 @@ class ColorTextureTrainer:
             init_parameters_(m, gen)
         for p in preds.values():
             p.requires_grad_(False)
+        for m in (g, d):        # as JAX's dry run shards gen and dis
+            shard_params(m, self.mesh)
         if self.cfg.gan_type == 'wgan_gp':
             for critic in (d, dz):
                 L.assert_penalty_critic(critic, self.mesh)
@@ -266,8 +273,8 @@ class ColorTextureTrainer:
 
         d_grads, g_grads, dz_grads = reduce_grads(mesh, d_grads, g_grads,
                                                   dz_grads)
-        finite = grads_finite(d_grads) & grads_finite(g_grads) & \
-            grads_finite(dz_grads)
+        finite = tp_all(grads_finite(d_grads) & grads_finite(g_grads)
+                        & grads_finite(dz_grads), mesh)
         safe_apply_updates(state.gen, g_grads, finite)
         safe_apply_updates(state.dis, d_grads, finite)
         safe_apply_updates(state.dis_noise, dz_grads, finite)

@@ -8,7 +8,9 @@
 # as in JAX.  Under data parallelism (`mesh`) every rank resumes from the
 # same checkpoint, the state is broadcast from rank 0 once at the start,
 # rank 0 alone writes the summaries and the checkpoints, and every rank
-# returns after the last checkpoint is written.  `entry_mesh` gives the
+# returns after the last checkpoint is written.  Under tensor parallelism
+# every rank takes part in gathering the tree rank 0 writes (to_tree), and
+# every rank reads the whole tree on resume and keeps its slices.  `entry_mesh` gives the
 # entry points JAX's --dp under `python -m torch.distributed.run`.
 
 from __future__ import annotations
@@ -98,6 +100,16 @@ def entry_mesh(dp: int, device, tag: str):
         torch.distributed.destroy_process_group()
 
 
+def _save(ckpt_dir: str, state, step: int, max_keep: int, mesh) -> None:
+    """Rank 0 writes state.to_tree(); with tp > 1 every rank gathers it
+    (a collective over the tp ranks)."""
+    main = pmesh.is_main(mesh)
+    if main or pmesh.tp_size(mesh) > 1:
+        tree = state.to_tree()
+        if main:
+            save_checkpoint(ckpt_dir, tree, step, max_keep=max_keep)
+
+
 def run_training(state, train_step: Callable, batch_fn: Callable,
                  total_steps: int, *,
                  step_args: Callable | None = None,
@@ -146,14 +158,12 @@ def run_training(state, train_step: Callable, batch_fn: Callable,
                                 if k in metrics)
                 print(f'[loop:{tag}] step {step}/{total_steps} '
                       f'{vals} ({rate:.1f} it/s)')
-        if main and ckpt_dir and step > 0 and step % model_save_step == 0:
-            save_checkpoint(ckpt_dir, state.to_tree(), step,
-                            max_keep=max_keep)
+        if ckpt_dir and step > 0 and step % model_save_step == 0:
+            _save(ckpt_dir, state, step, max_keep, mesh)
         if main and sample_fn and step > 0 and step % sample_step == 0:
             sample_fn(state, step)
-    if main and ckpt_dir:
-        save_checkpoint(ckpt_dir, state.to_tree(), total_steps - 1,
-                        max_keep=max_keep)
+    if ckpt_dir:
+        _save(ckpt_dir, state, total_steps - 1, max_keep, mesh)
     writer.close()
     pmesh.barrier(mesh)
     return state, metrics

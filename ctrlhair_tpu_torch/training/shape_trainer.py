@@ -34,7 +34,10 @@
 # global batch.  The draws are made for the global batch and each rank
 # takes its rows; the masked cross-entropies (ratios of batch sums), the
 # free-bits KL and the moment terms come from global sums, the other terms
-# are per-sample means and stay local.
+# are per-sample means and stay local.  Under tensor parallelism (a mesh
+# with tp > 1) the generator and the discriminator are sharded as JAX's dry
+# run shards them (shard_params); the latent-prior discriminator stays
+# whole on every tp rank, and the draws are the same on every tp rank.
 
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ from ctrlhair_tpu_torch.models.layers import Dense, init_parameters_
 from ctrlhair_tpu_torch.models.shape import (
     ShapeDiscriminator, ShapeDiscriminatorNoise, ShapeGenerator)
 from ctrlhair_tpu_torch.parallel.mesh import (
-    batch_mean, global_metrics, global_sum, local_rows, world_size)
+    batch_mean, global_metrics, global_sum, local_rows, shard_params, tp_all,
+    world_size)
 from ctrlhair_tpu_torch.pipeline.editor import resolve_device
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.predictor_trainer import (
@@ -154,6 +158,8 @@ class ShapeTrainer:
             with torch.no_grad():
                 for p in g.geo_head.parameters():
                     p.zero_()
+        for m in (g, d):        # as JAX's dry run shards gen and dis
+            shard_params(m, self.mesh)
         return GANTrainState(
             step=0, gen=ModelOpt(g, self.tx_g, 'shape'),
             dis=ModelOpt(d, self.tx_d, 'shape_dis'),
@@ -310,8 +316,8 @@ class ShapeTrainer:
 
         d_grads, g_grads, dz_grads = reduce_grads(mesh, d_grads, g_grads,
                                                   dz_grads)
-        finite = grads_finite(d_grads) & grads_finite(g_grads) & \
-            grads_finite(dz_grads)
+        finite = tp_all(grads_finite(d_grads) & grads_finite(g_grads)
+                        & grads_finite(dz_grads), mesh)
         safe_apply_updates(state.gen, g_grads, finite)
         safe_apply_updates(state.dis, d_grads, finite)
         safe_apply_updates(state.dis_noise, dz_grads, finite)

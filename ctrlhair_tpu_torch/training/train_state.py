@@ -36,7 +36,12 @@
 # int (every step advances it, finite or not, so the host always knows it)
 # and the count a 0-d int32 tensor on the module's device.  tensors() lists
 # every tensor of a state in a fixed order, for the data-parallel broadcast
-# from rank 0 (parallel/mesh.replicated).
+# from rank 0 (parallel/mesh.replicated).  Under tensor parallelism
+# (layers.set_tp) a sharded weight and its moments hold this tp rank's
+# slice: to_tree gathers them into flax's whole leaves (a collective over
+# the tp ranks, which every one of them must call) and load_tree takes
+# this rank's slice of the whole leaves it reads, so a checkpoint is the
+# same whatever the tp size that wrote or reads it.
 
 from __future__ import annotations
 
@@ -47,7 +52,9 @@ import torch
 import torch.nn as nn
 
 from ctrlhair_tpu_torch.convert import from_flax, to_flax
-from ctrlhair_tpu_torch.parallel.mesh import all_reduce_grads
+from ctrlhair_tpu_torch.models.layers import tp_shards
+from ctrlhair_tpu_torch.parallel.mesh import (
+    all_reduce_grads, tp_full, tp_local)
 
 EPS = 1e-8
 
@@ -112,7 +119,12 @@ class ModelOpt:
 
     # ------------------------------------------------------- flax layout
     def _params_tree(self, values) -> Dict[str, Any]:
-        return {'params': to_flax(self.module, self.family, values)['params']}
+        """flax's 'params' tree of tensors laid out like the parameters,
+        the tp-sharded ones gathered whole."""
+        shards = tp_shards(self.module)
+        whole = {k: tp_full(v, *shards[k]) if k in shards else v
+                 for k, v in values.items()}
+        return {'params': to_flax(self.module, self.family, whole)['params']}
 
     def to_tree(self) -> Dict[str, Any]:
         count = np.asarray(self.count.cpu().numpy(), np.int32)
@@ -126,9 +138,14 @@ class ModelOpt:
                     else {}}}
 
     def _named(self, tree) -> Dict[str, torch.Tensor]:
+        """{torch name: tensor} of a flax tree, this tp rank's slice of
+        each sharded parameter."""
         prefix = self.family + '.'
-        return {k[len(prefix):]: v for k, v in
-                from_flax({self.family: tree}).items()}
+        shards = tp_shards(self.module)
+        out = {k[len(prefix):]: v for k, v in
+               from_flax({self.family: tree}).items()}
+        return {k: tp_local(v, *shards[k]).clone() if k in shards else v
+                for k, v in out.items()}
 
     def load_tree(self, tree: Mapping[str, Any]) -> None:
         """Restore from a ModelOpt state-dict tree (JAX's or to_tree's);
@@ -236,7 +253,8 @@ def reduce_grads(mesh, *grad_lists: Sequence[torch.Tensor]
 
 
 def grads_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One bool tensor: every gradient entry is finite."""
+    """One bool tensor: every gradient entry of this rank is finite (under
+    tensor parallelism, reduce it over the tp ranks: mesh.tp_all)."""
     return torch.stack([torch.isfinite(g).all() for g in grads]).all()
 
 

@@ -43,3 +43,8 @@ def merge_hair_face(hair: torch.Tensor, face: torch.Tensor) -> torch.Tensor:
     """Inverse of split_hair_face: insert the hair channel at HAIR_IDX."""
     return torch.cat([face[..., :HAIR_IDX], hair, face[..., HAIR_IDX:]],
                      dim=-1)
+
+
+def region_areas(one_hot: torch.Tensor) -> torch.Tensor:
+    """Per-region pixel counts: [..., H, W, C] -> [..., C]."""
+    return torch.sum(one_hot, dim=(-3, -2))

@@ -94,6 +94,37 @@ def test_sean_encode(tiny_editor, jp, port):
     close(port.sean.encode(T(img), T(label)), ref)
 
 
+def test_conv_encoder_matches_jax():
+    """SEAN's VAE encoder (mu, logvar) on the same weights, carried from
+    flax's tree by convert's layout rules, at a small ngf."""
+    from ctrlhair_tpu.config import SEANConfig as JaxSEANConfig
+    from ctrlhair_tpu.models.sean import ConvEncoder as JaxConvEncoder
+    from ctrlhair_tpu_torch.config import SEANConfig
+    from ctrlhair_tpu_torch.convert import load_variables, to_flax
+    from ctrlhair_tpu_torch.models.sean import ConvEncoder
+    kw = dict(crop_size=128, ngf=4)
+    rng = np.random.default_rng(5)
+    img = rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
+    jenc = JaxConvEncoder(JaxSEANConfig(**kw), latent_dim=16)
+    variables = jax.device_get(jenc.init(jax.random.PRNGKey(0),
+                                         jnp.asarray(img[:1])))
+    enc = ConvEncoder(SEANConfig(**kw), latent_dim=16)
+    load_variables(enc, 'sean_encoder', variables)
+    mu, logvar = enc(T(img))
+    jmu, jlogvar = jax.jit(jenc.apply)(variables, jnp.asarray(img))
+    for got, ref in ((mu, jmu), (logvar, jlogvar)):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape == (2, 16)
+        np.testing.assert_allclose(got.detach().numpy(), ref, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(ref).max()))
+    back = to_flax(enc, 'sean_encoder')
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(variables)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(variables)):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize('fold', [True, False])
 def test_sean_decode(tiny_editor, jp, port, fold):
     """SEAN decode on given codes and label.  fold_style_convs=True is the

@@ -49,6 +49,23 @@ def test_masks_match_jax():
                                   oh)
 
 
+def test_region_areas_match_jax():
+    """Per-region pixel counts, exactly, on one-hot masks with unknown
+    pixels and on soft masks (eighths, so that every order of summing is
+    exact), with and without a batch axis."""
+    rng = np.random.default_rng(1)
+    label = rng.integers(0, 19, (3, 12, 10)).astype(np.int32)
+    label[1, 4:7, :] = 255
+    oh = masks.label_to_one_hot(T(label))
+    soft = T((rng.integers(0, 9, (2, 9, 7, 19)) / 8).astype(np.float32))
+    for x in (oh, oh[0], soft):
+        got = masks.region_areas(x)
+        want = np.asarray(jmasks.region_areas(jnp.asarray(x.numpy())))
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert masks.region_areas(oh).sum().item() == 3 * 12 * 10 - 30
+
+
 # ------------------------------------------------------------- colorspace
 def test_rgb_to_hsv_exact_on_uint8_grid():
     v = np.arange(0, 256, 5, dtype=np.uint8)

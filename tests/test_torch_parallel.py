@@ -301,8 +301,8 @@ def test_shard_batch_rows_and_refusal():
 
 def test_helpers_without_a_process_group():
     """mesh None is one process: every helper is the identity; make_mesh
-    needs a process group and refuses tensor parallelism, naming the
-    ROADMAP item."""
+    refuses a device count that tp does not divide, as JAX's does, and
+    needs a process group."""
     x = torch.randn(4, 3)
     assert pmesh.global_sum(x, None) is x
     assert pmesh.all_gather_rows(x, None) is x
@@ -311,8 +311,8 @@ def test_helpers_without_a_process_group():
     assert all(a is b for a, b in zip(pmesh.all_reduce_grads(grads, None),
                                       grads))
     assert torch.equal(pmesh.batch_mean(x, None), x.mean(0))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        pmesh.make_mesh(2, tp=2)
+    with pytest.raises(ValueError, match='not divisible by tp=2'):
+        pmesh.make_mesh(3, tp=2)
     with pytest.raises(RuntimeError, match='initialize_runtime'):
         pmesh.make_mesh(2)
 

@@ -19,11 +19,8 @@
 # rank from the same weights and stay bit-identical across the ranks.  With
 # remat_blocks the recompute in the backward issues the synced norms'
 # collectives again on both ranks, and the step equals the one without.
-# The float64 hold of the other trainers is left out here: in torch 2.13 a
-# float64 SEAN step on the CPU fails in the generator's backward (the
-# convolution backward, slow_conv2d, refuses a non-contiguous weight
-# gradient), in one process as on the ranks; the float32 step is held to
-# the single process at the one-step bar.
+# With the models computing in float64 the step is held to the single
+# process at 1e-6, as the other trainers are.
 import dataclasses
 
 import flax.serialization
@@ -70,7 +67,7 @@ def sean_spec(remat=False):
             'init_tree': state.to_tree(), 'batches': batches,
             'nan_batch': with_nan(batches[0], 'image', (N - 1, 3, 4, 0)),
             'draws': numpy_draws(jax_noise(key, SEAN, N)),
-            'full': not remat, 'float64': False}
+            'full': not remat}
 
     def jax_step():
         jtr = JaxSEANTrainer(SEAN, use_vgg=False, **DIS)

@@ -91,12 +91,19 @@ def template(fn):
     return jax.eval_shape(fn)
 
 
-def jax_sharded_step(jtr, jstate, batch, extra, rng):
-    """JAX's step with the batch sharded over make_mesh(WORLD, tp=1), the
-    state and `extra` replicated: (state dict, metrics)."""
-    mesh = jmesh.make_mesh(WORLD, tp=1)
+def jax_sharded_step(jtr, jstate, batch, extra, rng, world=WORLD, tp=1):
+    """JAX's step with the batch sharded over make_mesh(world, tp), the
+    state and `extra` replicated, and with tp > 1 the generator's and the
+    discriminator's parameters placed by shard_params, as JAX's dry run
+    places them: (state dict, metrics)."""
+    mesh = jmesh.make_mesh(world, tp=tp)
     with mesh:
         jstate = jax.device_put(jstate, jmesh.replicated(mesh))
+        if tp > 1:
+            jstate = jstate.replace(**{
+                k: getattr(jstate, k).replace(params=jmesh.shard_params(
+                    getattr(jstate, k).params, mesh))
+                for k in ('gen', 'dis')})
         extra = [jax.device_put(e, jmesh.replicated(mesh)) for e in extra]
         sharded = jmesh.shard_batch(
             {k: jnp.asarray(v) for k, v in batch.items()}, mesh)
@@ -106,7 +113,7 @@ def jax_sharded_step(jtr, jstate, batch, extra, rng):
 
 
 # ---------------------------------------------------------------- specs
-def ct_spec():
+def ct_spec(world=WORLD, tp=1):
     cfg = port_cfg(CT)
     sean = SEAN(port_cfg(TINY_SEAN))
     init_parameters_(sean, torch.Generator().manual_seed(1))
@@ -133,12 +140,13 @@ def ct_spec():
             template(lambda: jtr.init_state(jax.random.PRNGKey(0))[0]),
             spec['init_tree'])
         jpred = {k: to_flax(p, k) for k, p in preds.items()}
-        return jax_sharded_step(jtr, jstate, batches[0], [jpred], rng)
+        return jax_sharded_step(jtr, jstate, batches[0], [jpred], rng,
+                                world, tp)
     lrs = {'gen': CT.lr_g, 'dis': CT.lr_d, 'dis_noise': CT.lr_g}
     return spec, jax_step, (lrs, CT.beta1)
 
 
-def shape_spec():
+def shape_spec(world=WORLD, tp=1):
     from ctrlhair_tpu_torch.training.shape_trainer import ShapeTrainer
     state = ShapeTrainer(port_cfg(SHAPE), device='cpu').init_state(3)
     batches = [{k: np.asarray(v) for k, v in jst.synthetic_batch(
@@ -154,7 +162,8 @@ def shape_spec():
         jstate = flax.serialization.from_state_dict(
             template(lambda: jtr.init_state(jax.random.PRNGKey(0))),
             spec['init_tree'])
-        return jax_sharded_step(jtr, jstate, batches[0], [], rng)
+        return jax_sharded_step(jtr, jstate, batches[0], [], rng, world,
+                                tp)
     lrs = {'gen': SHAPE.lr_g, 'dis': SHAPE.lr_d, 'dis_noise': SHAPE.lr_dz}
     return spec, jax_step, (lrs, SHAPE.beta1)
 
@@ -186,17 +195,20 @@ SPECS = {'color_texture': ct_spec, 'shape': shape_spec,
          'bisenet': bisenet_spec}
 
 
-def run_families(specs_fns, tmp):
+def run_families(specs_fns, tmp, world=WORLD, tp=1,
+                 rank_fn=ranks.families_on_rank, payload=None):
     """{'specs', 'ranks' (per rank), 'single', 'jax', 'adam'} of the given
     cases ({name: () -> (spec, JAX's step or None, Adam's (lrs, b1) or
-    None)}): the ranks in a thread, JAX's sharded steps and the port's
-    single-process steps in this one."""
+    None)}): the ranks of make_mesh(world, tp) in a thread, JAX's sharded
+    steps and the port's single-process steps in this one.  The ranks run
+    rank_fn(mesh, specs), or rank_fn(mesh, payload(specs)) given a
+    payload function."""
     built = {f: fn() for f, fn in specs_fns.items()}
     specs = {f: dict(b[0], tmp=str(tmp)) for f, b in built.items()}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        on_ranks = pool.submit(run_on_ranks, ranks.families_on_rank, WORLD,
-                               specs,
-                               deadline_s=300.0)
+        on_ranks = pool.submit(run_on_ranks, rank_fn, world,
+                               payload(specs) if payload else specs,
+                               deadline_s=300.0, tp=tp)
         jax_out = {f: b[1]() for f, b in built.items() if b[1]}
         single = {f: ranks.trainer_checks(None, spec.get('family', f),
                                           spec, full=False)
@@ -211,10 +223,12 @@ def run(tmp_path_factory):
     return run_families(SPECS, tmp_path_factory.mktemp('ckpt'))
 
 
-def check_step(run, family, noise=None, share=NOISE_SHARE_MAX):
+def check_step(run, family, noise=None, share=NOISE_SHARE_MAX,
+               jax_bar=ONE_STEP):
     """The step's bars (the header's), shared with the SEAN file, whose
     `noise(got, ref, exempt)` adds the entries its own test exempts, and
-    whose exempt share is its own test's."""
+    whose exempt share is its own test's, and with the tensor-parallel
+    file, whose state bar against JAX's step is `jax_bar`."""
     init = run['specs'][family]['init_tree']
     per_rank = [r[family] for r in run['ranks']]
     got, metrics = per_rank[0]['step']
@@ -226,7 +240,7 @@ def check_step(run, family, noise=None, share=NOISE_SHARE_MAX):
     assert bool(jm['finite']) and bool(metrics['finite'])
     assert_metrics(metrics, jm, ONE_STEP)
     assert_metrics(metrics, single_m, ONE_STEP)
-    pairs = [(got, ref, ONE_STEP), (got, single, ONE_STEP)]
+    pairs = [(got, ref, jax_bar), (got, single, ONE_STEP)]
     if 'step64' in per_rank[0]:
         pairs.append((per_rank[0]['step64'][0],
                       run['single'][family]['step64'][0], SINGLE))
@@ -277,8 +291,8 @@ def test_nan_in_one_rank_and_resume_on_ranks(run, family):
 
 
 def test_dryrun_multichip_two_ranks():
-    """dryrun_multichip(2): the four families' steps over 2 gloo ranks,
-    each finite."""
+    """dryrun_multichip(2): the four families' steps over 2 gloo ranks
+    (tp = 2, as JAX's dry run takes it for an even count), each finite."""
     dryrun_multichip(2, deadline_s=240.0)
 
 

@@ -394,3 +394,30 @@ def test_run_sean_on_cpu_and_its_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit) as e:     # no launcher: no ranks
         run_sean.main(['--dp', '2', '--synthetic'])
     assert e.value.code == 2
+
+
+def test_float64_step_on_1x1_maps():
+    """With the models computing in float64 and the generator starting
+    from 1x1 maps (crop 32, num_up_layers 5), the SEAN step runs on the CPU
+    (torch's float64 convolution refused the weight gradient of the folded
+    style convolution there: its one-hot input, a view whose strides read
+    as channels-last) and equals the same step through the unfolded style
+    convolutions, within 1e-10 of each leaf's scale, metrics too."""
+    import dataclasses
+    from ctrlhair_tpu_torch.models.layers import set_compute_dtype
+    cfg = dataclasses.replace(TINY, num_up_layers=5, use_ace_noise=False)
+    batch = {k: torch.tensor(v) for k, v in sean_batch(40).items()}
+    trees, metrics = [], []
+    for fold in (True, False):
+        tr = SEANTrainer(port_cfg(dataclasses.replace(
+            cfg, fold_style_convs=fold)), use_vgg=False, device='cpu', **DIS)
+        state = tr.init_state(5)
+        assert tr.cfg.start_size == 1
+        for part in state.parts().values():
+            set_compute_dtype(part.module, torch.float64)
+        state, m = tr.train_step(state, batch)
+        assert bool(m['finite'])
+        trees.append(state.to_tree())
+        metrics.append({k: float(v) for k, v in m.items() if v.numel() == 1})
+    assert_metrics(metrics[0], metrics[1], 1e-10)
+    assert_trees(trees[0], trees[1], 1e-10)

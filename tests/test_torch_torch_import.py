@@ -19,10 +19,12 @@ from ctrlhair_tpu.convert import load as jload
 from ctrlhair_tpu.convert import torch_import as jti
 from ctrlhair_tpu_torch.convert import from_flax, load_variables
 from ctrlhair_tpu_torch.convert import torch_import as ti
-from ctrlhair_tpu_torch.convert.load import load_reference_params
+from ctrlhair_tpu_torch.convert.load import (
+    load_reference_params, load_reference_tree)
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from test_convert import _fake_ct_gen_sd, _fake_mlp_sd, _fake_shape_gen_sd
 from test_convert_sean import _fake_sean_sd
+from ctrlhair_tpu_torch.constants import HAIR_IDX as HAIR
 from test_torch_convert import (  # noqa: F401 (autouse)
     one_torch_thread, port_config)
 
@@ -266,4 +268,87 @@ def test_bisenet_reference_import(tiny_editor, tmp_path):
     assert set(wanted) == {k for k in state if k.startswith('bisenet.')}
     for key, value in wanted.items():
         torch.testing.assert_close(state[key], value, rtol=0, atol=0,
+                                   msg=key)
+
+
+def test_load_reference_tree(tiny_editor, tmp_path):
+    """The reference repository's on-disk layout, built from synthetic
+    reference state dicts: load_reference_tree loads into the port's editor
+    what JAX's load_reference_tree loads into its own (every family, the
+    face parser without its auxiliary heads, the median style codes), and
+    what load_reference_params does with the explicit paths.  A branch's
+    `latest_checkpoint` manifest wins over a later name; without one the
+    last *.ckpt by name is taken; a branch without checkpoints is left as
+    it is."""
+    cfg = tiny_editor.cfg
+    sds = {k: {n: torch.tensor(v) for n, v in sd.items()}
+           for k, sd in fake_state_dicts(cfg, seed=5).items()}
+    decoys = {k: {n: torch.tensor(v) for n, v in sd.items()}
+              for k, sd in fake_state_dicts(cfg, seed=6).items()}
+    root = tmp_path / 'reference'
+    ext = root / 'external_model_params'
+    files = {
+        ext / 'sean_checkpoints' / 'CelebA-HQ_pretrained' /
+        'latest_net_G.pth': sds['sean'],
+        ext / 'face_parsing_79999_iter.pth': {
+            'module.' + k: torch.tensor(v) for k, v in
+            fake_bisenet_sd(np.random.default_rng(7)).items()}}
+    trained = root / 'model_trained'
+    ct = trained / 'color_texture' / '045__color_texture_final' / \
+        'checkpoints'
+    shape = trained / 'shape' / \
+        '054__succeed__049__gan_fake_0.5_from_noise' / 'checkpoints'
+    rgb = trained / 'color_encoder' / 'p004___pca_std' / 'checkpoints'
+    files.update({
+        ct / '0000300.ckpt': {'Model_G': sds['ct_gen'],
+                              'Model_D': sds['ct_dis']},
+        ct / '0000400.ckpt': {'Model_G': decoys['ct_gen'],
+                              'Model_D': decoys['ct_dis']},
+        shape / '0000100.ckpt': {'Model_G': decoys['shape']},
+        shape / '0000200.ckpt': {'Model_G': sds['shape']},
+        rgb / 'predictor.ckpt': {'Predictor': sds['rgb_pred']}})
+    for path, payload in files.items():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(payload, str(path))
+    for d, name in ((ct, '0000300.ckpt'), (rgb, 'predictor.ckpt')):
+        (d / 'latest_checkpoint').write_text(name + '\n')
+    styles = root / 'sean_codes' / 'styles_test' / 'mean_style_code' / \
+        'median'
+    rng = np.random.default_rng(8)
+    for i in (0, 4, HAIR):
+        (styles / str(i)).mkdir(parents=True)
+        np.save(str(styles / str(i) / 'ACE.npy'), rng.standard_normal(
+            cfg.sean.style_dim).astype(np.float32))
+
+    jed = copy.copy(tiny_editor)           # the session fixture stays as is
+    jparams = jax.device_get(jload.load_reference_tree(jed, str(root)))
+    port = HairEditor(port_config(cfg), device='cpu')
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    loaded = load_reference_tree(port, str(root))
+    assert set(loaded) == {'sean', 'bisenet', 'ct_gen', 'ct_dis', 'shape',
+                           'rgb_pred'}
+    assert loaded['shape'].endswith('0000200.ckpt')
+    assert loaded['ct_gen'].endswith('0000300.ckpt')
+    jparams['bisenet'] = {
+        col: {k: v for k, v in sub.items()
+              if k not in ('conv_out16', 'conv_out32')}
+        for col, sub in jparams['bisenet'].items()}
+    want = from_flax({k: v for k, v in jparams.items()
+                      if k in loaded or k == 'style_fallback'})
+    got = port.state_dict()
+    assert np.abs(want['style_fallback'].numpy()).sum() > 0
+    for key, value in want.items():
+        torch.testing.assert_close(got[key], value, rtol=0, atol=0,
+                                   msg=key)
+    for key in got:                   # the curliness branch had no files
+        if key.startswith('curliness_pred.'):
+            assert torch.equal(got[key], before[key])
+    explicit = HairEditor(port_config(cfg), device='cpu')
+    assert load_reference_params(
+        explicit, sean_path=loaded['sean'], bisenet_path=loaded['bisenet'],
+        color_texture_ckpt=loaded['ct_gen'], shape_ckpt=loaded['shape'],
+        rgb_predictor_ckpt=loaded['rgb_pred'],
+        style_fallback_dir=str(styles)) == loaded
+    for key, value in explicit.state_dict().items():
+        torch.testing.assert_close(got[key], value, rtol=0, atol=0,
                                    msg=key)

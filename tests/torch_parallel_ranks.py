@@ -238,3 +238,129 @@ def families_on_rank(mesh, specs):
                                  spec.get('full', True))
             for name, spec in specs.items()}
 
+
+
+# ------------------------------------------------- tensor parallelism
+def nan_in_one_shard(mesh, family, spec):
+    """A step whose gradient is NaN in one entry of tp rank 1's slice of
+    the generator's first sharded weight, nowhere else: (the tree before,
+    the tree after, this rank's finite flag)."""
+    import importlib
+    from ctrlhair_tpu_torch.models.layers import tp_shards
+    trainer, state, extra = make_trainer(family, spec, mesh)
+    module = importlib.import_module(type(trainer).__module__)
+    names = [n for n, _ in state.gen.module.named_parameters()]
+    poisoned = names.index(sorted(tp_shards(state.gen.module))[0])
+    real = module.reduce_grads
+
+    def reduce_then_poison(m, d_grads, g_grads, dz_grads):
+        d_grads, g_grads, dz_grads = real(m, d_grads, g_grads, dz_grads)
+        if m.tp_rank == 1:
+            g_grads = list(g_grads)
+            g_grads[poisoned] = g_grads[poisoned].clone()
+            g_grads[poisoned].view(-1)[0] = float('nan')
+        return d_grads, g_grads, dz_grads
+
+    before = state.to_tree()
+    draws = spec['draws']
+    module.reduce_grads = reduce_then_poison
+    try:
+        state, metrics = trainer.train_step(
+            state, shard_batch(tensors(spec['batches'][0]), mesh), *extra,
+            *(() if draws is None else (tensors(draws),)))
+    finally:
+        module.reduce_grads = real
+    return before, state.to_tree(), bool(metrics['finite'])
+
+
+def checkpoints_across_tp(mesh, family, spec, read_dir, write_dir):
+    """The tree of `read_dir`'s checkpoint (written by one process) after
+    this mesh's state loads it; and run_training's one step on this mesh
+    checkpointed into `write_dir` (by rank 0)."""
+    from ctrlhair_tpu_torch.training.loop import run_training
+    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
+    trainer, state, extra = make_trainer(family, spec, mesh)
+    state.load_tree(load_checkpoint(read_dir)[0])
+    loaded = state.to_tree()
+    trainer, state, extra = make_trainer(family, spec, mesh)
+    run_training(state, trainer.train_step,
+                 lambda step: shard_batch(tensors(spec['batches'][step]),
+                                          mesh),
+                 1, step_args=lambda: extra, ckpt_dir=write_dir,
+                 verbose=False, mesh=mesh)
+    return loaded
+
+
+def critic_under_penalty(mesh, seed=0):
+    """A float64 critic of every column-parallel kind (Conv, ConvTranspose,
+    Dense, and a Dense that stays whole) under a penalty on its input
+    gradient, as WGAN-GP and R0 take it: the loss mean(D(x)) +
+    mean(|dD/dx|^2), its input gradient and its parameter gradients by
+    double backward, on this mesh's tp ranks and, for reference, with the
+    same weights unsharded in this process.  Returns {'x_grad', 'loss',
+    'grads'}: the largest differences, each scaled by max(1, |ref|)."""
+    import copy
+    import torch.nn.functional as F
+    from ctrlhair_tpu_torch.models.layers import (
+        Conv, ConvTranspose, Dense, init_parameters_, set_compute_dtype,
+        set_tp, tp_shards)
+    from ctrlhair_tpu_torch.parallel.mesh import tp_full
+
+    class Critic(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = Conv(3, 4, 3, 1, 1)
+            self.up = ConvTranspose(4, 4, 3, 2, 1, 1)
+            self.fc = Dense(4 * 8 * 8, 6)
+            self.head = Dense(6, 1)
+
+        def forward(self, x):
+            x = F.leaky_relu(self.conv(x), 0.2)
+            x = F.leaky_relu(self.up(x), 0.2)
+            x = F.leaky_relu(self.fc(x.reshape(x.shape[0], -1)), 0.2)
+            return self.head(x)
+
+    ref = Critic().double()
+    init_parameters_(ref, torch.Generator().manual_seed(seed))
+    set_compute_dtype(ref, torch.float64)
+    net = copy.deepcopy(ref)
+    set_tp(net, mesh)
+    shards = tp_shards(net)
+    assert sorted(shards) == ['conv.weight', 'fc.weight', 'up.weight']
+    x0 = torch.randn((3, 3, 4, 4), dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(seed + 1))
+
+    def run(model):
+        x = x0.clone().requires_grad_(True)
+        adv = model(x)
+        gx = torch.autograd.grad(adv.sum(), x, create_graph=True)[0]
+        loss = adv.mean() + torch.mean(torch.sum(gx.reshape(3, -1) ** 2, 1))
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return gx.detach(), loss.detach(), dict(zip(names, grads))
+
+    gx, loss, grads = run(net)
+    gx_ref, loss_ref, grads_ref = run(ref)
+    grads = {k: tp_full(g, *shards[k]) if k in shards else g
+             for k, g in grads.items()}
+
+    def gap(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    return {'x_grad': gap(gx, gx_ref), 'loss': gap(loss, loss_ref),
+            'grads': max(gap(grads[k], grads_ref[k]) for k in grads_ref)}
+
+
+def tp_on_rank(mesh, payload):
+    """Every rank-side computation of tests/test_torch_tensor_parallel.py:
+    trainer_checks of each family, the NaN in one shard, the checkpoints
+    across tp sizes, and the critic under a penalty."""
+    out = families_on_rank(mesh, payload['specs'])
+    for family, spec in payload['specs'].items():
+        out[family]['nan_shard'] = nan_in_one_shard(mesh, family, spec)
+        out[family]['loaded'] = checkpoints_across_tp(
+            mesh, family, spec, payload['single_dirs'][family],
+            payload['tp_dirs'][family])
+    out['critic'] = critic_under_penalty(mesh)
+    out['mesh'] = (mesh.rank, mesh.tp_rank, mesh.world, mesh.tp)
+    return out
