@@ -41,10 +41,11 @@ Drives the port's four paths at the full default PipelineConfig() width:
      same state, batch and draws (the shape, face-parser and landmark steps
      on the batch's first two samples, in float64, and their float32 steps
      against the CPU's float64 one), to a NaN batch that must leave the
-     state bit-identical, and to a save after step 2 whose resume must equal
-     the unbroken run bit for bit; then (c) run_color_texture.main([--synthetic,
-     --steps 3]) and (h) run_shape.main on the pool, run_bisenet.main
-     --synthetic and run_landmark.main, 3 steps each, in this process, each
+     state bit-identical, and to its tree after step 2 loaded into a new
+     state, whose run must equal the unbroken one bit for bit; then (c)
+     run_color_texture.main([--synthetic, --steps 3]) and (h)
+     run_shape.main on the pool, run_bisenet.main --synthetic and
+     run_landmark.main, 3 steps each, in this process, each
      checkpoint read back by the port's reader, the landmark one loaded by
      load_landmark_net; (i) the SEAN trainer at SEANConfig() (crop 256, ngf
      64, style 512, syncbatch, spectral norm) against the default two-scale
@@ -75,7 +76,20 @@ Drives the port's four paths at the full default PipelineConfig() width:
      card (in float64), the ranks' gathered trees bit-identical, a NaN
      batch and a resume after step 1 bit-identical on both ranks; the bytes of trained
      parameters a rank holds, collectives a step, tp against plain step ms
-     and each rank's peak memory.
+     and each rank's peak memory;
+  8. chunked training, phase (m), its launch counts set to 0 before it and
+     read after it: training/chunked.ChunkRunner with each step captured
+     once as a CUDA graph and replayed, one host read of the metrics a
+     chunk: the shape trainer of (e), batch 4 gathered on the card from
+     the warp pool of (d), 9 steps in chunks of 4, and the landmark
+     trainer of (g), batch 64 gathered on the card from (g)'s rendered
+     faces, 17 steps in chunks of 8; each held to the eager per-step loop
+     from the same state and streams (bit-identical with deterministic
+     cuDNN; the graph captured under cuDNN's defaults within 1e-3 after
+     its first step), with a NaN batch inside a chunk (one trip) and
+     a run resumed at step 4 bit-identical to the straight one; eager and
+     chunked ms a step, capture ms, kernels and runtime calls a step, the
+     idle share of one chunk and peak memory.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -102,7 +116,6 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
-import copy
 import functools
 import gc
 import json
@@ -138,6 +151,27 @@ CG_BAR, CG_PINNED_BAR = 0.5, 6e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# host seconds of the training phase's checks by part, summed over calls
+# and keyed by the trainer they belong to (printed once at the end): where
+# the smoke's time goes, for the next cut of its depth
+LAPS: dict = {}
+LAP_SCOPE = ['']
+
+
+class lap:
+    """with lap('part'): adds the block's host seconds to LAPS."""
+
+    def __init__(self, part: str):
+        self.key = f'{LAP_SCOPE[0]}: {part}'
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        LAPS[self.key] = LAPS.get(self.key, 0.0) + (
+            time.perf_counter() - self.t0)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -932,7 +966,7 @@ def phase_warp_routes(be, parses, mesh):
     return {'routes_agree': agree}, times
 
 
-DEPLOYMENT_REPS = 5
+DEPLOYMENT_REPS = 3
 # families shipped in model_trained/ (as the editor names them), and the
 # two that are not (their checkpoints are distributed separately)
 SHIPPED = {'bisenet', 'ct_gen', 'ct_dis', 'rgb_pred', 'curliness_pred'}
@@ -1568,9 +1602,18 @@ def tree_leaves(tree, prefix=()):
         yield prefix, np.asarray(tree)
 
 
+def abs_max(a: np.ndarray) -> float:
+    """The largest magnitude of an array, without a temporary (the checks
+    compare trees of up to 6 GB; a temporary costs its page faults)."""
+    if a.dtype.kind != 'f':
+        return float(np.abs(a).max())
+    return float(max(a.max(), -a.min()))
+
+
 def tree_diff(got, ref) -> tuple:
     """(worst scaled difference, its leaf) between two state trees of the
-    same keys."""
+    same keys: each leaf's largest difference over max(1, its largest
+    magnitude in ref), in float64."""
     g, r = list(tree_leaves(got)), list(tree_leaves(ref))
     if [p for p, _ in g] != [p for p, _ in r]:
         raise AssertionError('state trees differ in their keys')
@@ -1581,8 +1624,8 @@ def tree_diff(got, ref) -> tuple:
         if a.shape != b.shape:
             raise AssertionError(f'{"/".join(path)}: shape {a.shape} '
                                  f'against {b.shape}')
-        d = float(np.abs(a.astype(np.float64) - b).max()) / max(
-            1.0, float(np.abs(b).max()))
+        diff = np.asarray(np.subtract(a, b, dtype=np.float64))
+        d = float(np.abs(diff, out=diff).max()) / max(1.0, abs_max(b))
         if not d <= worst:
             worst, where = d, '/'.join(path)
     return worst, where
@@ -1642,8 +1685,13 @@ def ill_conditioned(card, cpu, part: str) -> dict:
     have a true gradient of zero and are such entries."""
     mus = [dict(tree_leaves(t[part]['opt_state']['0']['mu']))
            for t in (card, cpu)]
-    return {path: np.abs(mus[0][path] - a) > 1e-2 * np.abs(a)
-            for path, a in mus[1].items()}
+    masks = {}
+    for path, a in mus[1].items():
+        diff = np.asarray(np.subtract(mus[0][path], a))
+        bar = np.asarray(np.abs(a))
+        bar *= 1e-2
+        masks[path] = np.abs(diff, out=diff) > bar
+    return masks
 
 
 def trained_modules(state) -> list:
@@ -1659,8 +1707,9 @@ def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
     the models computing in `dtype` (None: as built); `draws` None for a
     trainer whose step draws nothing."""
     from ctrlhair_tpu_torch.models.layers import set_compute_dtype
-    trainer, state, args = make_trainer(device)
-    state.load_tree(init_tree)
+    with lap(f'check build {device}'):
+        trainer, state, args = make_trainer(device)
+        state.load_tree(init_tree)
     if dtype is not None:
         frozen = [m for m in (getattr(trainer, 'vgg', None),) if m is not None]
         for module in trained_modules(state) + frozen:
@@ -1669,8 +1718,18 @@ def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
     extra = () if draws is None else ({
         k: ([m.to(device) for m in v] if isinstance(v, list)
             else v.to(device)) for k, v in draws.items()},)
-    state, metrics = trainer.train_step(state, b, *args(state), *extra)
-    return state.to_tree(), {k: v.cpu() for k, v in metrics.items()}
+    with lap(f'check step {device}'):
+        state, metrics = trainer.train_step(state, b, *args(state), *extra)
+        metrics = {k: v.cpu() for k, v in metrics.items()}
+    with lap('check to_tree'):
+        return state.to_tree(), metrics
+
+
+def tree_copy(tree):
+    """A copy of a tree's dicts that shares its arrays (held_to_cpu
+    replaces leaves, it writes into none)."""
+    return {k: tree_copy(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree
 
 
 def held_to_cpu(card, card_m, cpu, cpu_m, init_tree, lr: dict,
@@ -1688,9 +1747,11 @@ def held_to_cpu(card, card_m, cpu, cpu_m, init_tree, lr: dict,
         init = dict(tree_leaves(init_tree[part]['params']))
         sides = [dict(tree_leaves(t[part]['params'])) for t in (card, cpu)]
         for path, mask in masks.items():
+            if not mask.any():
+                continue
             for side in sides:
-                moved = np.abs(side[path] - init[path])[mask]
-                if gate and moved.size and moved.max() > 2 * part_lr:
+                moved = np.abs(side[path][mask] - init[path][mask])
+                if gate and moved.max() > 2 * part_lr:
                     raise AssertionError(
                         f'{part}/{"/".join(path)}: an entry with a noise '
                         f'gradient moved {moved.max():.3g} > 2 lr')
@@ -1721,56 +1782,74 @@ def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict,
             cpu[dt] = one_step(make_trainer, init_tree, batch, draws, 'cpu',
                                dt)
         tree, metrics = cpu[dt]
-        return copy.deepcopy(tree), metrics
+        return tree_copy(tree), metrics
 
     card, card_m = one_step(make_trainer, init_tree, batch, draws, 'cuda',
                             dtype)
-    out = held_to_cpu(card, card_m, *cpu_step(dtype), init_tree, lr)
+    ref = cpu_step(dtype)
+    with lap('check compare'):
+        out = held_to_cpu(card, card_m, *ref, init_tree, lr)
     if float32:
         card, card_m = one_step(make_trainer, init_tree, batch, draws,
                                 'cuda', None)
-        out['float32'] = held_to_cpu(card, card_m, *cpu_step(dtype),
-                                     init_tree, lr, bar=FLOAT32_CARD_BAR)
+        with lap('check compare'):
+            out['float32'] = held_to_cpu(card, card_m, *cpu_step(dtype),
+                                         init_tree, lr, bar=FLOAT32_CARD_BAR)
     return out
 
 
 def nan_and_resume(make_trainer, init_tree, batches, nan_batch,
                    moved=None):
-    """A NaN batch leaves the state bit-identical (its step aside); a save
-    after step 2 and a resume to the end equal the unbroken run bit for
-    bit.  `moved(before, after)`: for a state that a NaN step rightly
-    moves in part (the SEAN trainer's u vectors), checks those leaves and
-    returns their keys, which the bit identity leaves out."""
-    import tempfile
-    from ctrlhair_tpu_torch.utils.checkpoint import (
-        load_checkpoint, save_checkpoint)
-    trainer, state, args = make_trainer('cuda')
-    state.load_tree(init_tree)
-    for b in batches:
-        state, _ = trainer.train_step(state, b, *args(state))
-    unbroken = state.to_tree()
-    state, m = trainer.train_step(state, nan_batch, *args(state))
-    after = state.to_tree()
-    skip = moved(unbroken, after) if moved else ()
-    kept = lambda t: {k: v for k, v in without_step(t).items()
-                      if k not in skip}
-    if bool(m['finite']) or int(after['step']) != int(unbroken['step']) + 1 \
-            or not bit_equal(kept(after), kept(unbroken)):
-        raise AssertionError('a NaN batch moved the training state')
-    trainer, state, args = make_trainer('cuda')
-    state.load_tree(init_tree)
-    with tempfile.TemporaryDirectory() as tmp:
-        for b in batches[:3]:
-            state, _ = trainer.train_step(state, b, *args(state))
-        save_checkpoint(tmp, state.to_tree(), state.step - 1)
+    """A NaN batch leaves the state bit-identical (its step aside); the
+    state's tree after step 2 loaded into a new trainer's state and run to
+    the end equals the unbroken run bit for bit.  The tree stays in memory:
+    the entry points of (c) and (h) write the colour/texture, shape,
+    face-parser, landmark and SEAN checkpoints at these widths and read
+    them back equal (the predictors' few MB are the CPU tests'), so the
+    disk would add nothing here but seconds.
+    `moved(before, after)`: for a state that a NaN step rightly moves in
+    part (the SEAN trainer's u vectors), checks those leaves and returns
+    their keys, which the bit identity leaves out."""
+    with lap('nan_resume build'):
         trainer, state, args = make_trainer('cuda')
-        tree, last = load_checkpoint(tmp)
+        state.load_tree(init_tree)
+    with lap('nan_resume steps'):
+        for b in batches:
+            state, _ = trainer.train_step(state, b, *args(state))
+        with lap('nan_resume to_tree'):
+            unbroken = state.to_tree()
+        state, m = trainer.train_step(state, nan_batch, *args(state))
+    with lap('nan_resume to_tree'):
+        after = state.to_tree()
+    with lap('nan_resume compare'):
+        skip = moved(unbroken, after) if moved else ()
+        kept = lambda t: {k: v for k, v in without_step(t).items()
+                          if k not in skip}
+        if bool(m['finite']) or \
+                int(after['step']) != int(unbroken['step']) + 1 or \
+                not bit_equal(kept(after), kept(unbroken)):
+            raise AssertionError('a NaN batch moved the training state')
+    del after
+    with lap('nan_resume build'):
+        trainer, state, args = make_trainer('cuda')
+        state.load_tree(init_tree)
+    last = 2
+    with lap('nan_resume steps'):
+        for b in batches[:last + 1]:
+            state, _ = trainer.train_step(state, b, *args(state))
+    with lap('nan_resume to_tree'):
+        tree = state.to_tree()
+    with lap('nan_resume build'):
+        trainer, state, args = make_trainer('cuda')
         state.load_tree(tree)
-    for b in batches[last + 1:]:
-        state, _ = trainer.train_step(state, b, *args(state))
-    if not bit_equal(state.to_tree(), unbroken):
-        raise AssertionError('the run resumed after step 2 differs from the '
-                             'unbroken run')
+    del tree
+    with lap('nan_resume steps'):
+        for b in batches[last + 1:]:
+            state, _ = trainer.train_step(state, b, *args(state))
+    with lap('nan_resume compare'):
+        if not bit_equal(state.to_tree(), unbroken):
+            raise AssertionError('the run resumed after step 2 differs from '
+                                 'the unbroken run')
     return {'nan_state_bit_identical': True, 'resume_bit_identical': True,
             'resumed_after_step': last, 'nan_step_moves': list(skip)}
 
@@ -2059,6 +2138,7 @@ def trainer_phase(name: str, make_trainer, batches, nan_batch, draws,
     resume after step 2.
     `check`: (make_trainer, batch, draws) of a smaller depth for the
     card-against-CPU check, in place of this trainer's."""
+    LAP_SCOPE[0] = name.split()[0]
     trainer, state, args = make_trainer('cuda')
     init_tree = state.to_tree()
     n_params = sum(p.numel() for m in trained_modules(state)
@@ -2089,6 +2169,7 @@ def trainer_phase(name: str, make_trainer, batches, nan_batch, draws,
     make_check, batch, check_draws = check or (make_trainer, batches[0],
                                                draws)
     n_all = next(iter(batch.values())).shape[0]
+    t0 = time.perf_counter()
     cpu_check = deterministic(card_against_cpu)(
         make_check, make_check('cuda')[1].to_tree() if check else init_tree,
         first_samples({k: v.cpu() for k, v in batch.items()}, n_all,
@@ -2097,16 +2178,21 @@ def trainer_phase(name: str, make_trainer, batches, nan_batch, draws,
             {k: v.cpu() for k, v in check_draws.items()}, n_all,
             CHECK_BATCH),
         lr, dtype=torch.float64, float32=True)
+    t1 = time.perf_counter()
     checks = deterministic(nan_and_resume)(make_trainer, init_tree, batches,
                                            nan_batch)
+    check_s = {'card_vs_cpu': t1 - t0,
+               'nan_and_resume': time.perf_counter() - t1}
     log(f'[train] {name} checks: card against CPU {cpu_check} (bars '
-        f'{TRAIN_CARD_BAR}, float32 {FLOAT32_CARD_BAR}); {checks}')
+        f'{TRAIN_CARD_BAR}, float32 {FLOAT32_CARD_BAR}); {checks}; seconds '
+        f'{check_s}')
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
     return {'trained_parameters': n_params, 'step_ms': ms, 'median_ms': med,
             'steps_per_s': 1e3 / med, 'peak_bytes': peak, 'profile': prof,
-            'losses': losses, 'card_vs_cpu': cpu_check, **checks}
+            'losses': losses, 'card_vs_cpu': cpu_check,
+            'check_seconds': check_s, **checks}
 
 
 def pool_root(tmp: str) -> str:
@@ -2265,9 +2351,9 @@ def phase_train_bisenet(smi: str, dp_cases: dict) -> dict:
     return {'config': 'BiSeNetConfig()', 'batch': BISENET_BATCH, **rec}
 
 
-def phase_train_landmark(smi: str) -> dict:
+def phase_train_landmark(smi: str, dp_cases: dict) -> dict:
     """(g) The landmark regressor at LandmarkNetConfig() (128 px), batch 64
-    from the port's renderer."""
+    from the port's renderer; its batches, stacked, are phase (m)'s pool."""
     from ctrlhair_tpu_torch.data.landmark_dataset import training_batch
     from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
     from ctrlhair_tpu_torch.training.landmark_trainer import LandmarkTrainer
@@ -2292,6 +2378,8 @@ def phase_train_landmark(smi: str) -> dict:
     rec = trainer_phase(f'landmark LandmarkNetConfig(), batch '
                         f'{LANDMARK_BATCH}', make_trainer, batches,
                         nan_batch, None, {'model': cfg.lr}, smi)
+    dp_cases['chunked']['landmark_pool'] = {
+        k: torch.cat([b[k] for b in batches]) for k in batches[0]}
     return {'config': 'LandmarkNetConfig()', 'batch': LANDMARK_BATCH,
             'render_ms_per_sample': render_ms / (TRAIN_STEPS
                                                  * LANDMARK_BATCH), **rec}
@@ -2306,6 +2394,67 @@ def phase_train_landmark(smi: str) -> dict:
 # to 7.0e-4 of a gradient's scale even with float64 models (measured on the
 # H100, the forward activations 2e-7 apart); over 4 images, 9.1e-7.
 SEAN_BATCH, SEAN_CHECK_CROP = 4, 64
+
+
+# The Zencoder's transposed convolution (up_0) alone: the port's forward,
+# which takes cuDNN's deterministic algorithms whatever the global flag
+# (models/layers.ConvTranspose), against F.conv_transpose2d under cuDNN's
+# defaults (the forward before the repair of the float32 SEAN step), at the
+# editor's shape (one image, bfloat16, forward: analyze_image) and the
+# SEAN trainer's (batch 4, float32, forward and backward); mean ms by CUDA
+# events, the two taken in turns.
+CONV_T_REPS, CONV_T_ROUNDS = 20, 3
+
+
+def conv_transpose_times(smi: str) -> dict:
+    from ctrlhair_tpu_torch.config import SEANConfig
+    from ctrlhair_tpu_torch.models.layers import (
+        TorchConvTranspose, init_parameters_, set_compute_dtype)
+    import torch.nn.functional as F
+    cfg = SEANConfig()
+    cin, side = cfg.zencoder_ngf * 4, cfg.crop_size // 4
+    up = TorchConvTranspose(cin, cfg.zencoder_ngf * 8, 3, 2, 1, 1)
+    init_parameters_(up, torch.Generator().manual_seed(SEED))
+    up.cuda()
+    conv = up.conv
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    out = {}
+    for name, n, dtype, backward in (
+            ('editor', 1, torch.bfloat16, False),
+            ('trainer', SEAN_BATCH, torch.float32, True)):
+        set_compute_dtype(up, dtype)
+        x = torch.randn((n, cin, side, side), generator=gen,
+                        device='cuda').to(dtype).requires_grad_(backward)
+
+        def timed(forward):
+            def call():
+                y = forward(x)
+                if backward:
+                    torch.autograd.grad(y.float().square().sum(),
+                                        (x, conv.weight))
+            return call
+
+        def plain(x):
+            return F.conv_transpose2d(
+                x, conv.weight.to(dtype), conv.bias.to(dtype), conv.stride,
+                conv.padding, conv.output_padding)
+
+        fns = {'port_deterministic': timed(up), 'plain_defaults': timed(plain)}
+        ms = {k: [] for k in fns}
+        for _ in range(CONV_T_ROUNDS):
+            for k, fn in fns.items():
+                ms[k].append(cuda_ms(fn, CONV_T_REPS))
+        out[name] = {'input': [n, cin, side, side], 'dtype': str(dtype),
+                     'backward': backward,
+                     **{k: float(np.median(v)) for k, v in ms.items()}}
+    log('[time] ConvTranspose (SEAN Zencoder up_0) alone, median of '
+        f'{CONV_T_ROUNDS} means of {CONV_T_REPS}: ' + '; '.join(
+            f'{k} {v["input"]} {v["dtype"]}'
+            f'{" forward+backward" if v["backward"] else " forward"}: port '
+            f'(deterministic) {v["port_deterministic"]:.4f} ms, '
+            f'F.conv_transpose2d (defaults) {v["plain_defaults"]:.4f} ms'
+            for k, v in out.items()) + f' ({smi})')
+    return out
 
 
 def sn_power_iteration(w_tree, u_tree, path=()):
@@ -2352,6 +2501,7 @@ def phase_train_sean(smi: str, dp_cases: dict) -> dict:
     from ctrlhair_tpu_torch.models.sean_discriminator import VGG19Features
     from ctrlhair_tpu_torch.training.sean_trainer import (
         SEANTrainer, synthetic_batch)
+    LAP_SCOPE[0] = 'sean'
     cfg = SEANConfig()
     vgg = VGG19Features()
     init_parameters_(vgg, torch.Generator().manual_seed(SEED))
@@ -2391,6 +2541,7 @@ def phase_train_sean(smi: str, dp_cases: dict) -> dict:
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
+    conv_t = conv_transpose_times(smi)
     dp_cases['sean'] = (maker(cfg), batches)
     small = dataclasses.replace(cfg, crop_size=SEAN_CHECK_CROP)
     make_small = maker(small)
@@ -2423,7 +2574,8 @@ def phase_train_sean(smi: str, dp_cases: dict) -> dict:
             'trained_parameters': n_params, 'step_ms': ms, 'median_ms': med,
             'steps_per_s': 1e3 / med, 'peak_bytes': peak, 'profile': prof,
             'losses': losses, 'card_vs_cpu_crop': SEAN_CHECK_CROP,
-            'card_vs_cpu': cpu_check, 'check_seconds': check_s, **checks}
+            'card_vs_cpu': cpu_check, 'check_seconds': check_s,
+            'conv_transpose_ms': conv_t, **checks}
 
 
 def phase_canvas_prep(tmp: str, smi: str) -> dict:
@@ -2524,11 +2676,13 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
             state = main(argv + ['--steps', '3', '--out-dir', d])
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            tree, step = load_checkpoint(os.path.join(d, 'checkpoints'))
+            LAP_SCOPE[0] = 'entry points'
+            with lap(f'{name} checkpoint read back'):
+                tree, step = load_checkpoint(os.path.join(d, 'checkpoints'))
+                equal = bit_equal(tree, state.to_tree())
             module = (state.model if name == 'run_bisenet' else state.gen
                       ).module
-            if step != 2 or state.step != 3 or \
-                    not bit_equal(tree, state.to_tree()) or \
+            if step != 2 or state.step != 3 or not equal or \
                     next(module.parameters()).device.type != 'cuda':
                 raise AssertionError(f'{name}: step {step}, state step '
                                      f'{state.step}, checkpoint not equal '
@@ -3076,6 +3230,401 @@ def phase_tensor_parallel(tp_cases: dict, smi: str):
     return read_launches('tensor_parallel', 0, 0), rec
 
 
+# ------------------------------------------------- chunked training (m)
+# Phase (m): ChunkRunner (ctrlhair_tpu_torch/training/chunked.py) on the
+# card, each step captured once as a CUDA graph and replayed, one host read
+# of the metrics a chunk.  The shape trainer at ShapeConfig() with the
+# soak's recipe, batch 4 gathered on the card from the warp pool of (d) (K2
+# built it), CHUNK_SHAPE steps in chunks of 4 (4, 4, 1); the landmark
+# trainer at LandmarkNetConfig(), batch 64 gathered on the card from the
+# faces phase (g) rendered on the host, CHUNK_LANDMARK steps in chunks of 8.
+# For each: the eager per-step loop and the chunked run from the same state
+# on the same streams (batch of step s from CHUNK_BATCH_SEED + s, draws from
+# step s), a NaN batch inside the second chunk; the two states bit-identical
+# (else their gap held to CHUNK_GAP_BAR of each tensor's scale and stated),
+# one trip; then the chunked run of 0..4 and 4..end from the same state
+# again, bit-identical to the straight chunked run; eager and chunked ms a
+# step, capture ms, runtime calls and kernels a step and the idle share of
+# one chunk under torch.profiler, peak memory.  Timed with cuDNN's
+# defaults, held bit for bit with deterministic cuDNN: the defaults'
+# algorithms do not give the same bits twice even eagerly, and Adam
+# amplifies their noise over the steps until no bar can be set.  So the
+# graph captured under the defaults, the one that is timed and that
+# training uses, is held after its first step: its state (measured as
+# held_to_cpu measures a step, the noise entries held to a move of 2 lr)
+# and its losses within CHUNK_DEFAULT_BAR of the eager first step under the
+# defaults.  The bar lies between two readings (PERF.md): two eager first
+# steps under the defaults, which stand apart by their noise alone, and a
+# wrong algorithm, which put the float32 SEAN step 4.4e-3 of a gradient's
+# scale from float64 (FLOAT32_CARD_BAR is 5e-3).
+CHUNK_SHAPE, CHUNK_SHAPE_SIZE = 9, 4
+CHUNK_LANDMARK, CHUNK_LANDMARK_SIZE = 17, 8
+CHUNK_BATCH_SEED, CHUNK_NAN_STEP, CHUNK_RESUME_AT = 1000, 5, 4
+CHUNK_GAP_BAR, CHUNK_DEFAULT_BAR = 1e-6, 1e-3
+
+
+def device_shape_pool(root: str) -> dict:
+    """The warp pool of (d) as uint8 label maps on the card, at
+    ShapeConfig().img_size: each pool file's target, face and hair, and
+    the real masks of ShapeDataset (its files and resize)."""
+    from ctrlhair_tpu_torch.config import ShapeConfig
+    from ctrlhair_tpu_torch.data.shape_dataset import (
+        ShapeDataset, _load_label)
+    ds = ShapeDataset(ShapeConfig(), root)
+    maps = {'target': [], 'face': [], 'hair': []}
+    for fname in ds.pool_files:
+        parts = os.path.splitext(fname)[0].split('___')
+        maps['target'].append(_load_label(os.path.join(ds.pool_dir, fname)))
+        maps['hair'].append(_load_label(ds.catalog.label_path(
+            f'{parts[0]}___{parts[1]}')))
+        maps['face'].append(_load_label(ds.catalog.label_path(
+            f'{parts[2]}___{parts[3]}')))
+    maps['real'] = [_load_label(ds.catalog.label_path(k))
+                    for k in ds.real_keys]
+    return {k: torch.from_numpy(np.stack([ds._resize(m) for m in v])
+                                .astype(np.uint8)).cuda()
+            for k, v in maps.items()}
+
+
+def shape_pool_batches(pool: dict, n: int, nan_seed: int):
+    """make_batch(seed) of the shape trainer: n triplets and n real masks
+    gathered on the card by indices and mirror bits that a card generator
+    seeded by `seed` draws (ShapeDataset's batch, on the card); a NaN in
+    the face mask of the batch of nan_seed."""
+    from ctrlhair_tpu_torch.utils.masks import label_to_one_hot
+    n_pool, n_real = pool['target'].shape[0], pool['real'].shape[0]
+
+    def take(maps, idx, mirror):
+        lab = maps[idx].long()
+        return label_to_one_hot(torch.where(mirror[:, None, None],
+                                            lab.flip(-1), lab))
+
+    def make_batch(seed):
+        gen = torch.Generator('cuda').manual_seed(seed)
+        idx = torch.randint(0, n_pool, (n,), generator=gen, device='cuda')
+        ridx = torch.randint(0, n_real, (n,), generator=gen, device='cuda')
+        mirror, rmirror = torch.randint(0, 2, (2, n), generator=gen,
+                                        device='cuda').bool()
+        batch = {k: take(pool[k], idx, mirror)
+                 for k in ('target', 'face', 'hair')}
+        batch['real'] = take(pool['real'], ridx, rmirror)
+        if seed == nan_seed:
+            batch['face'][1, 3, 4, 0] = float('nan')
+        return batch
+
+    return make_batch
+
+
+def landmark_pool_batches(pool: dict, n: int, nan_seed: int):
+    """make_batch(seed) of the landmark trainer: n samples gathered on the
+    card from the rendered pool by indices a card generator seeded by
+    `seed` draws (as run_landmark gathers them); a NaN in one pixel of the
+    batch of nan_seed."""
+    n_pool = pool['image'].shape[0]
+
+    def make_batch(seed):
+        gen = torch.Generator('cuda').manual_seed(seed)
+        idx = torch.randint(0, n_pool, (n,), generator=gen, device='cuda')
+        batch = {k: v[idx] for k, v in pool.items()}
+        if seed == nan_seed:
+            batch['image'][5, 3, 4, 0] = float('nan')
+        return batch
+
+    return make_batch
+
+
+def profile_chunk(fn, steps: int, step_ms: float) -> dict:
+    """torch.profiler over one call of `fn` (a chunk of `steps` steps,
+    warm: the caller has run it): kernels a step and their device ms
+    (kernel records, as profile_step reads them), the CUDA runtime's launch
+    and copy calls a step, and the card's idle share of `steps` x
+    `step_ms` (the unprofiled median)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_ms, kernels, calls = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 \
+                and not e.key.startswith(('Activity Buffer', 'Buffer Flush')):
+            device_ms += e.self_device_time_total / 1e3
+            kernels += e.count
+        elif e.device_type == DeviceType.CPU and e.key.startswith('cuda') \
+                and ('Launch' in e.key or 'Memcpy' in e.key):
+            calls[e.key] = e.count / steps
+    wall = steps * step_ms
+    return {'device_ms_per_step': device_ms / steps,
+            'kernels_per_step': kernels / steps,
+            'runtime_calls_per_step': calls,
+            'idle_share': max(0.0, 1.0 - device_ms / wall) if device_ms
+            else None}
+
+
+@torch.no_grad()
+def state_gap(got: list, ref: list) -> tuple:
+    """(bit-identical, worst difference scaled by max(1, |ref|max)) of two
+    states' tensor lists."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().max() / max(
+                1.0, float(b.abs().max()))
+            worst = max(worst, float(d))
+    return all(torch.equal(a, b) for a, b in zip(got, ref)), worst
+
+
+def opt_snapshot(state) -> list:
+    """Copies of each trained part's parameters, buffers and Adam moments:
+    [(params, buffers, mu, nu)] in the state's part order."""
+    return [tuple([t.detach().clone() for t in ts] for ts in (
+        m.params(), m.module.buffers(), m.mu.values(), m.nu.values()))
+        for m in (state.parts().values() if hasattr(state, 'parts')
+                  else [state.model])]
+
+
+@torch.no_grad()
+def opt_gap(got: list, ref: list, init: list, lrs: list) -> float:
+    """The largest difference of two opt_snapshots after one step from
+    `init`, each tensor's scaled by max(1, its largest magnitude in ref),
+    as held_to_cpu measures a step: a parameter entry whose gradient (mu)
+    the two do not reproduce to 1% is rounding noise, which Adam turns
+    into a move of about lr of either sign; such entries must have moved at
+    most 2 lr on both sides and are left out of the parameters' gap."""
+    worst = 0.0
+
+    def scaled(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            1.0, float(b.abs().max())) if b.numel() else 0.0
+
+    for (gp, gb, gm, gn), (rp, rb, rm, rn), (ip, _, _, _), lr in zip(
+            got, ref, init, lrs):
+        for a, b, a0, mg, mr in zip(gp, rp, ip, gm, rm):
+            noisy = (mg - mr).abs() > 1e-2 * mr.abs()
+            for side in (a, b):
+                if bool(((side - a0).abs() > 2 * lr)[noisy].any()):
+                    return float('inf')
+            worst = max(worst, scaled(torch.where(noisy, 0.0, a),
+                                      torch.where(noisy, 0.0, b)))
+        for a, b in zip(gb + gm + gn, rb + rm + rn):
+            worst = max(worst, scaled(a, b))
+    return worst
+
+
+def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
+                 lrs: list, steps: int, chunk: int, smi: str) -> dict:
+    """The eager loop and the chunked runs of one trainer, as the comment
+    above says: timed with cuDNN's defaults, the graph captured under them
+    held after its first step to the eager first step (the gap of two
+    eager first steps beside it; the gap after all the steps stated),
+    then held bit for bit with deterministic cuDNN, through a graph
+    captured under it.  `lrs`: the learning rate of each trained part, in
+    the state's part order."""
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    bseed = CHUNK_BATCH_SEED
+
+    def restart(state):
+        with torch.no_grad():
+            for t, s0 in zip(state.tensors(), init):
+                t.copy_(s0)
+        state.step = 0
+        return state
+
+    def eager(state, n=steps, first=None):
+        """n eager steps; `first`, a list, gets the opt_snapshot and the
+        losses after the first."""
+        times, finite = [], []
+        for s in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, make_batch(bseed + s), *(
+                () if make_draws is None else (make_draws(s),)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            finite.append(bool(m['finite']))
+            if first is not None and s == 0:
+                first += [opt_snapshot(state), {
+                    k: float(v) for k, v in m.items() if k != 'finite'}]
+        return times, finite
+
+    def chunked(state, runner, **kw):
+        return runner.run(state, 0, steps, chunk_size=chunk, **kw)
+
+    want_finite = [s != CHUNK_NAN_STEP for s in range(steps)]
+    eager_state = make_state()
+    init = [t.clone() for t in eager_state.tensors()]
+    init_opt = opt_snapshot(eager_state)
+    # timed, cuDNN's defaults
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager_ms, finite = eager(eager_state)
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_over = eager_peak - base
+    eager_med = float(np.median(eager_ms[1:]))
+    eager_default = [t.clone() for t in eager_state.tensors()]
+    # the first step again, twice, for the hold of the graph captured
+    # under the defaults (outside the peak above: a snapshot is a state)
+    first, again = [], []
+    eager(restart(eager_state), 1, first)
+    eager(restart(eager_state), 1, again)
+    eager_twice_gap = opt_gap(again[0], first[0], init_opt, lrs)
+    del again
+    eager_prof = profile_chunk(lambda: trainer.train_step(
+        eager_state, make_batch(bseed), *(
+            () if make_draws is None else (make_draws(0),))), 1, eager_med)
+    state = restart(make_state())
+    runner = ChunkRunner(trainer.train_step, make_batch,
+                         make_draws=make_draws, batch_seed=bseed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stamps = [time.perf_counter()]
+    state, rows, trips = chunked(state, runner, record_every=1, on_chunk=(
+        lambda s, st, r: stamps.append(time.perf_counter())))
+    chunked_peak = torch.cuda.max_memory_allocated()
+    chunked_over = chunked_peak - base
+    sizes = [min(chunk, steps - i) for i in range(0, steps, chunk)]
+    chunk_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    chunked_med = float(np.median([ms / n for ms, n in
+                                   zip(chunk_ms[1:], sizes[1:])]))
+    _, default_gap = state_gap(state.tensors(), eager_default)
+    if finite != want_finite or trips != 1 or \
+            [bool(r['finite']) for r in rows] != want_finite:
+        raise AssertionError(f'{name}: trips {trips}, finite flags '
+                             f'{[r["finite"] for r in rows]}, eager '
+                             f'{finite}; one NaN batch at step '
+                             f'{CHUNK_NAN_STEP} expected')
+    capture_ms = runner.capture_ms[0]
+    prof = profile_chunk(
+        lambda: runner.run(state, state.step, state.step + chunk,
+                           chunk_size=chunk), chunk, chunked_med)
+    # the graph captured under the defaults, after its first step
+    state, rows, _ = runner.run(restart(state), 0, 1, chunk_size=chunk)
+    graph_gap = opt_gap(opt_snapshot(state), first[0], init_opt, lrs)
+    loss_gap = max(abs(rows[0][k] - v) / max(1.0, abs(v))
+                   for k, v in first[1].items())
+    if runner.captures != 1 or not graph_gap <= CHUNK_DEFAULT_BAR or \
+            not loss_gap <= CHUNK_DEFAULT_BAR:
+        raise AssertionError(
+            f'{name}: after one step the graph captured under cuDNN\'s '
+            f'defaults stands {graph_gap:.3g} from the eager step (losses '
+            f'{loss_gap:.3g}; bar {CHUNK_DEFAULT_BAR}; two eager steps '
+            f'{eager_twice_gap:.3g}; {runner.captures} captures)')
+    del runner, eager_default, first, init_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    @deterministic
+    def held():
+        """The eager loop and a chunked run from a graph captured with
+        deterministic cuDNN: bit-identical (else within CHUNK_GAP_BAR);
+        the NaN step one trip; 0..CHUNK_RESUME_AT then on to the end
+        through the same graph, bit-identical to the straight run."""
+        eager(restart(eager_state))
+        runner = ChunkRunner(trainer.train_step, make_batch,
+                             make_draws=make_draws, batch_seed=bseed)
+        st, _, trips = chunked(restart(state), runner)
+        identical, gap = state_gap(st.tensors(), eager_state.tensors())
+        if st.step != steps or trips != 1 or not gap <= CHUNK_GAP_BAR:
+            raise AssertionError(
+                f'{name}: the chunked state at step {st.step} ({trips} '
+                f'trips) stands {gap:.3g} from the eager one (bar '
+                f'{CHUNK_GAP_BAR}, deterministic cuDNN)')
+        straight = [t.clone() for t in st.tensors()]
+        st, _, _ = runner.run(restart(st), 0, CHUNK_RESUME_AT,
+                              chunk_size=chunk)
+        st, _, _ = runner.run(st, CHUNK_RESUME_AT, steps, chunk_size=chunk)
+        resumed, _ = state_gap(st.tensors(), straight)
+        if not resumed or runner.captures != 1:
+            raise AssertionError(f'{name}: the run resumed at step '
+                                 f'{CHUNK_RESUME_AT} differs from the '
+                                 f'straight one ({runner.captures} '
+                                 'captures)')
+        return identical, gap, resumed
+
+    identical, gap, resumed = held()
+    rec = {'steps': steps, 'chunk_size': chunk, 'chunk_sizes': sizes,
+           'eager_ms': eager_ms, 'eager_median_ms': eager_med,
+           'chunk_ms': chunk_ms, 'chunked_median_ms_per_step': chunked_med,
+           'capture_ms': capture_ms,
+           'eager_profile': eager_prof, 'chunked_profile': prof,
+           'eager_peak_bytes': eager_peak,
+           'chunked_peak_bytes': chunked_peak,
+           'eager_peak_over_start_bytes': eager_over,
+           'chunked_peak_over_start_bytes': chunked_over,
+           'default_cudnn_gap': {
+               'first_step': {'eager_twice': eager_twice_gap,
+                              'graph_vs_eager': graph_gap,
+                              'losses_graph_vs_eager': loss_gap,
+                              'bar': CHUNK_DEFAULT_BAR},
+               'all_steps_graph_vs_eager': default_gap},
+           'bit_identical': identical, 'max_scaled_gap': gap,
+           'finite_trips': trips, 'resume_bit_identical': resumed}
+    log(f'[chunked] {name}: {steps} steps in chunks of {chunk} '
+        f'({sizes}); eager {eager_med:.3f} ms a step, chunked '
+        f'{chunked_med:.3f} ms a step (chunks '
+        f'{", ".join(f"{t:.3f}" for t in chunk_ms)} ms, the first with the '
+        f'capture of {capture_ms:.1f} ms); kernels a step eager '
+        f'{eager_prof["kernels_per_step"]:.0f}, chunked '
+        f'{prof["kernels_per_step"]:.0f}; runtime calls a step eager '
+        f'{eager_prof["runtime_calls_per_step"]}, chunked '
+        f'{prof["runtime_calls_per_step"]}; device ms a step eager '
+        f'{eager_prof["device_ms_per_step"]:.3f}, chunked '
+        f'{prof["device_ms_per_step"]:.3f}; idle eager '
+        f'{eager_prof["idle_share"]}, chunked {prof["idle_share"]}; peak '
+        f'{eager_peak} B eager, {chunked_peak} B chunked (over the memory '
+        f'held at the run\'s start: {eager_over} B, {chunked_over} B); '
+        f'with cuDNN\'s defaults after the first step two eager runs stand '
+        f'{eager_twice_gap:.3g} apart and the graph {graph_gap:.3g} from '
+        f'the eager one (losses {loss_gap:.3g}; bar {CHUNK_DEFAULT_BAR}), '
+        f'after {steps} steps the chunked run {default_gap:.3g} from the '
+        f'eager one; deterministic: '
+        f'bit-identical {identical} (worst {gap:.3g}), NaN step '
+        f'{CHUNK_NAN_STEP} one trip, resume at {CHUNK_RESUME_AT} '
+        f'bit-identical {resumed} ({smi})')
+    return rec
+
+
+def phase_chunked(cases: dict, smi: str):
+    """Phase (m), as the comment above says; the launch counts set to 0
+    before it and read after it (the pool it reads was built by K2 in (d);
+    no kernel of the port runs here)."""
+    import dataclasses
+    from ctrlhair_tpu_torch.config import ShapeConfig
+    from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
+    from ctrlhair_tpu_torch.training.landmark_trainer import LandmarkTrainer
+    from ctrlhair_tpu_torch.training.shape_trainer import ShapeTrainer
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = {}
+    cfg = dataclasses.replace(ShapeConfig(), kl_free_bits=0.25,
+                              lambda_geo=30.0, lambda_info=1.0)
+    trainer = ShapeTrainer(cfg, device='cuda', seed=SEED)
+    rec['shape'] = chunked_case(
+        f'shape ShapeConfig() soak recipe, batch {SHAPE_BATCH}', trainer,
+        lambda: trainer.init_state(SEED),
+        shape_pool_batches(cases['shape_pool'], SHAPE_BATCH,
+                           CHUNK_BATCH_SEED + CHUNK_NAN_STEP),
+        lambda s: trainer.draws(s, SHAPE_BATCH),
+        [cfg.lr_g, cfg.lr_d, cfg.lr_dz], CHUNK_SHAPE, CHUNK_SHAPE_SIZE, smi)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    lcfg = LandmarkNetConfig()
+    ltrainer = LandmarkTrainer(lcfg, device='cuda')
+    rec['landmark'] = chunked_case(
+        f'landmark LandmarkNetConfig(), batch {LANDMARK_BATCH}', ltrainer,
+        lambda: ltrainer.init_state(SEED),
+        landmark_pool_batches(cases['landmark_pool'], LANDMARK_BATCH,
+                              CHUNK_BATCH_SEED + CHUNK_NAN_STEP),
+        None, [lcfg.lr], CHUNK_LANDMARK, CHUNK_LANDMARK_SIZE, smi)
+    rec['seconds'] = time.perf_counter() - t0
+    return read_launches('chunked', 0, 0), rec
+
+
 def phase_training(smi: str, dp_cases: dict):
     """The training slice: (d) the warp pool, whose warps launch K2, (e)
     the shape trainer on it, (a) colour/texture, (b) predictors, (f) the
@@ -3098,6 +3647,7 @@ def phase_training(smi: str, dp_cases: dict):
     with tempfile.TemporaryDirectory() as tmp:
         root, shape_batches, rec['warp_pool'] = run(
             'warp_pool', phase_train_pool, tmp, smi)
+        dp_cases['chunked'] = {'shape_pool': device_shape_pool(root)}
         rec['shape'] = run('shape', phase_train_shape, shape_batches, smi,
                            dp_cases)
         del shape_batches
@@ -3105,7 +3655,7 @@ def phase_training(smi: str, dp_cases: dict):
                 ('color_texture', phase_train_ct, (dp_cases,)),
                 ('predictors', phase_train_predictors, ()),
                 ('bisenet', phase_train_bisenet, (dp_cases,)),
-                ('landmark', phase_train_landmark, ()),
+                ('landmark', phase_train_landmark, (dp_cases,)),
                 ('sean', phase_train_sean, (dp_cases,))):
             rec[key] = run(key, fn, smi, *args)
         rec['canvas_prep'] = run('canvas_prep', phase_canvas_prep,
@@ -3312,8 +3862,17 @@ def main() -> int:
                                                         smi)
     t_phase['tensor_parallel'] = time.perf_counter() - t_start - sum(
         t_phase.values())
+
+    # 12. phase (m), chunked training through CUDA graphs: both counts set
+    # to 0 before it and read after it
+    m_launches, chunked = phase_chunked(dp_cases.pop('chunked'), smi)
+    t_phase['chunked'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
     log('[time] phases, seconds: '
         + ', '.join(f'{k} {v:.1f}' for k, v in t_phase.items()))
+    log('[time] training checks by part, seconds: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in sorted(LAPS.items(),
+                                          key=lambda kv: -kv[1])))
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
     raster_entry['case']['ptxas'] = ptxas['raster_uv']
@@ -3324,14 +3883,15 @@ def main() -> int:
         'launches': launches + b_launches['masked_cg']
         + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values())
         + t_launches['masked_cg'] + p_launches['masked_cg']
-        + l_launches['masked_cg'],
+        + l_launches['masked_cg'] + m_launches['masked_cg'],
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
                              'deployment': d_launches['masked_cg'],
                              **s_launches['masked_cg'],
                              'training': t_launches['masked_cg'],
                              'parallel': p_launches['masked_cg'],
-                             'tensor_parallel': l_launches['masked_cg']},
+                             'tensor_parallel': l_launches['masked_cg'],
+                             'chunked': m_launches['masked_cg']},
         **cg_entry,
     }, {
         'name': 'raster_uv', 'route': 'cuda',
@@ -3340,14 +3900,15 @@ def main() -> int:
         'launches': raster_launches + b_launches['raster_uv']
         + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values())
         + t_launches['raster_uv'] + p_launches['raster_uv']
-        + l_launches['raster_uv'],
+        + l_launches['raster_uv'] + m_launches['raster_uv'],
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
                              'deployment': d_launches['raster_uv'],
                              **s_launches['raster_uv'],
                              'training': t_launches['raster_uv'],
                              'parallel': p_launches['raster_uv'],
-                             'tensor_parallel': l_launches['raster_uv']},
+                             'tensor_parallel': l_launches['raster_uv'],
+                             'chunked': m_launches['raster_uv']},
         **raster_entry,
     }]
     if set(kernels[0]) != set(kernels[1]):
@@ -3364,7 +3925,7 @@ def main() -> int:
         'backend_check': {**warp_check, **routes_check},
         'deployment': deployment, 'serving': serving,
         'training': training, 'parallel': parallel,
-        'tensor_parallel': tensor_parallel,
+        'tensor_parallel': tensor_parallel, 'chunked': chunked,
         'phase_seconds': t_phase,
         'seconds': time.perf_counter() - t_start}}))
     log(smi)

@@ -149,11 +149,28 @@ class ConvTranspose(_ColumnParallel, nn.ConvTranspose2d):
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return self._column_parallel(
-            lambda x, w, b: F.conv_transpose2d(x, w, b, self.stride,
-                                               self.padding,
-                                               self.output_padding),
-            x.to(cd), self.weight.to(cd), bias)
+        return self._column_parallel(self._transpose, x.to(cd),
+                                     self.weight.to(cd), bias)
+
+    def _transpose(self, x, w, b):
+        """The transposed convolution; on the card with cuDNN's
+        deterministic algorithms.  cuDNN runs this forward through its
+        backward-data algorithms; with its default choice the float32 SEAN
+        step, whose Zencoder holds the port's one transposed convolution,
+        stood 4.4e-3 or 8.9e-3 of a gradient's scale from float64 in 5 of
+        15 steps, with the deterministic ones in none of 15 (on an H100;
+        tests/test_torch_cuda.py::
+        test_sean_float32_step_on_card_repeats_within_bar).  Why the
+        default choice goes wrong only inside the whole step is not
+        known."""
+        if not (x.is_cuda and torch.backends.cudnn.is_acceptable(x)):
+            return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                      self.output_padding)
+        y = torch.ops.aten.cudnn_convolution_transpose(
+            x, w, self.padding, self.output_padding, self.stride,
+            self.dilation, self.groups, torch.backends.cudnn.benchmark, True,
+            torch.backends.cudnn.allow_tf32)
+        return y if b is None else y + b.view(1, -1, 1, 1)
 
 
 class Dense(_ColumnParallel, nn.Linear):

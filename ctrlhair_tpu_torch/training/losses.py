@@ -151,6 +151,7 @@ class LossSchedule:
     def __init__(self, cfg):
         self.static: Dict[str, float] = {}
         self.scheduled: Dict[str, Mapping[int, float]] = {}
+        self._device_tables: Dict[tuple, tuple] = {}
         for name in dir(cfg):
             if not name.startswith('lambda_'):
                 continue
@@ -162,20 +163,35 @@ class LossSchedule:
 
     def weight(self, name: str, step) -> torch.Tensor:
         """The weight at `step` as a float32 tensor; a step tensor stays on
-        its device (no host read)."""
+        its device (no host read).  The tables are copied to that device
+        once, so later calls copy nothing from the host and a CUDA graph
+        can capture them (training/chunked.py)."""
         if not isinstance(step, torch.Tensor):
             return torch.tensor(self.weight_host(name, int(step)),
                                 dtype=torch.float32)
-        if name in self.static:
-            return torch.tensor(self.static[name], dtype=torch.float32,
-                                device=step.device)
-        items = list(self.scheduled[name].items())
-        out = torch.tensor(items[0][1], dtype=torch.float32,
-                           device=step.device)
-        for s, v in items[1:]:
-            out = torch.where(step >= s, torch.tensor(
-                v, dtype=torch.float32, device=step.device), out)
-        return out
+        values, bounds = self._tables(name, step)
+        if bounds is None:
+            return values
+        return values[torch.searchsorted(bounds, step.reshape(1),
+                                         right=True)[0]]
+
+    def _tables(self, name: str, step: torch.Tensor):
+        """(values, bounds) of one weight on step's device: a 0-d value and
+        None for a static weight; for a schedule its weights and the start
+        steps after the first, in step's dtype (searchsorted's rule)."""
+        key = (name, str(step.device), step.dtype)
+        if key not in self._device_tables:
+            if name in self.static:
+                values = torch.tensor(self.static[name], dtype=torch.float32)
+                bounds = None
+            else:
+                items = list(self.scheduled[name].items())
+                values = torch.tensor([v for _, v in items],
+                                      dtype=torch.float32)
+                bounds = torch.tensor([s for s, _ in items[1:]],
+                                      dtype=step.dtype).to(step.device)
+            self._device_tables[key] = (values.to(step.device), bounds)
+        return self._device_tables[key]
 
     def weight_host(self, name: str, step: int) -> float:
         """The weight at a step the host knows, as a Python float."""

@@ -34,14 +34,17 @@
 #   LandmarkTrainState  {'step', 'model'}
 # `step` and the counts are int32 0-d arrays there; here `step` is a Python
 # int (every step advances it, finite or not, so the host always knows it)
-# and the count a 0-d int32 tensor on the module's device.  tensors() lists
-# every tensor of a state in a fixed order, for the data-parallel broadcast
-# from rank 0 (parallel/mesh.replicated).  Under tensor parallelism
-# (layers.set_tp) a sharded weight and its moments hold this tp rank's
-# slice: to_tree gathers them into flax's whole leaves (a collective over
-# the tp ranks, which every one of them must call) and load_tree takes
-# this rank's slice of the whole leaves it reads, so a checkpoint is the
-# same whatever the tp size that wrote or reads it.
+# and the count a 0-d int32 tensor on the module's device.  Every tensor of
+# a state is updated in place, by a step and by load_tree alike, so a CUDA
+# graph captured over a step (training/chunked.py) keeps reading and
+# writing the state's own tensors.  tensors() lists every tensor of a state
+# in a fixed order, for the data-parallel broadcast from rank 0
+# (parallel/mesh.replicated) and the snapshots of training/chunked.py.
+# Under tensor parallelism (layers.set_tp) a sharded weight and its moments
+# hold this tp rank's slice: to_tree gathers them into flax's whole leaves
+# (a collective over the tp ranks, which every one of them must call) and
+# load_tree takes this rank's slice of the whole leaves it reads, so a
+# checkpoint is the same whatever the tp size that wrote or reads it.
 
 from __future__ import annotations
 
@@ -127,7 +130,7 @@ class ModelOpt:
         return {'params': to_flax(self.module, self.family, whole)['params']}
 
     def to_tree(self) -> Dict[str, Any]:
-        count = np.asarray(self.count.cpu().numpy(), np.int32)
+        count = np.array(self.count.cpu().numpy(), np.int32)  # a copy
         params = dict(self.module.named_parameters())
         return {'params': self._params_tree(params),
                 'opt_state': {
@@ -164,8 +167,7 @@ class ModelOpt:
                                      'match the module\'s parameters')
                 for k, v in values.items():
                     store[k].copy_(v.to(device))
-        self.count = torch.tensor(int(np.asarray(adam['count'])),
-                                  dtype=torch.int32, device=device)
+        self.count.fill_(int(np.asarray(adam['count'])))
 
 
 class SGD:
@@ -280,7 +282,7 @@ def safe_apply_updates(model: ModelOpt, grads: Sequence[torch.Tensor],
         p.copy_(torch.where(finite, p + step_size * update, p))
         model.mu[name].copy_(torch.where(finite, mu, model.mu[name]))
         model.nu[name].copy_(torch.where(finite, nu, model.nu[name]))
-    model.count = torch.where(finite, count_inc, model.count)
+    model.count.copy_(torch.where(finite, count_inc, model.count))
 
 
 def adam(lr, beta1: float = 0.5, beta2: float = 0.999) -> Adam:
@@ -355,6 +357,9 @@ class LandmarkTrainState:
     def __init__(self, step: int, model: ModelOpt):
         self.step = step
         self.model = model
+
+    def tensors(self) -> List[torch.Tensor]:
+        return self.model.tensors()
 
     def to_tree(self) -> Dict[str, Any]:
         return {'step': np.asarray(self.step, np.int32),

@@ -1,7 +1,8 @@
 # Card-only tests of the PyTorch port: the masked-CG and UV-rasteriser CUDA
 # kernels against their plain versions, the warp's kernel route, the
-# multigrid blend and the float32 slice on the card against the same on the
-# CPU.  They skip without a CUDA device.  This file imports nothing of
+# multigrid blend, the float32 slice on the card against the same on the
+# CPU, and ChunkRunner's CUDA graphs against the same steps taken eagerly.
+# They skip without a CUDA device.  This file imports nothing of
 # JAX, so on a machine with a card and no JAX it runs without the suite's
 # conftest:
 #     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -562,13 +563,25 @@ def test_sean_train_step_on_card_matches_cpu(card):
     statistics included); in float32, as it trains, the card's step and the
     CPU's within FLOAT32_BAR of the CPU's float64 step, and the TF32 step
     outside it."""
+    run_step, init = _sean_step_case()
+    _hold_step(run_step('cuda', torch.float64),
+               run_step('cpu', torch.float64), init, SEAN_LRS)
+    _hold_float32(_float32_against_float64(run_step, init, SEAN_LRS))
+
+
+SEAN_LRS = {'gen': 1e-4, 'dis': 4e-4}
+
+
+def _sean_step_case():
+    """(run_step, init): run_step(device, dtype) -> the state's tree after
+    one step of _sean_trainer from `init` on one batch and one ACE noise
+    draw (both made on the host), the models computing in `dtype`."""
     from ctrlhair_tpu_torch.models.layers import set_compute_dtype
     from ctrlhair_tpu_torch.training.sean_trainer import synthetic_batch
     cpu = _sean_trainer('cpu')
     batch = synthetic_batch(np.random.default_rng(6), cpu.cfg, 4)
     noise = cpu.draws(0, 4)
     init = cpu.init_state(0).to_tree()
-    lrs = {'gen': 1e-4, 'dis': 4e-4}
 
     def run_step(device, dtype):
         tr = _sean_trainer(device)
@@ -582,9 +595,50 @@ def test_sean_train_step_on_card_matches_cpu(card):
         assert bool(m['finite']) and 'g/vgg' in m and 'g/l1' in m
         return state.to_tree()
 
-    _hold_step(run_step('cuda', torch.float64),
-               run_step('cpu', torch.float64), init, lrs)
-    _hold_float32(_float32_against_float64(run_step, init, lrs))
+    return run_step, init
+
+
+# The card's float32 SEAN step went off in some steps and processes (4.4e-3
+# or 8.9e-3 of a gradient's scale, 5 of 15 steps in one process) while the
+# Zencoder's transposed convolution ran its forward with cuDNN's default
+# algorithms; see PERF.md.  SEAN_REPEATS steps in one process hold the
+# repair, and the same steps with the old forward are printed beside them.
+# The bar lies between the repaired steps' readings (1.7e-6 to 2.1e-6, on
+# an H100) and the wrong ones, the smaller of which, 4.4e-3, FLOAT32_BAR
+# lets through.
+SEAN_REPEATS, SEAN_REPEAT_BAR = 10, 1e-4
+
+
+@pytest.mark.cuda
+def test_sean_float32_step_on_card_repeats_within_bar(card, monkeypatch):
+    """The float32 SEAN step of test_sean_train_step_on_card_matches_cpu
+    taken SEAN_REPEATS times on the card with cuDNN's defaults (TF32 off):
+    every one within SEAN_REPEAT_BAR of the CPU's float64 step.  The
+    readings of the same steps with the transposed convolution's forward
+    as F.conv_transpose2d under cuDNN's defaults (the port before the
+    repair) are printed, not held: that fault comes and goes."""
+    from ctrlhair_tpu_torch.models import layers
+    run_step, init = _sean_step_case()
+    ref = run_step('cpu', torch.float64)
+
+    def readings():
+        return [_step_distance(run_step('cuda', torch.float32), ref, init,
+                               SEAN_LRS)[0] for _ in range(SEAN_REPEATS)]
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    repaired = readings()
+
+    def old_forward(self, x, w, b):
+        return torch.nn.functional.conv_transpose2d(
+            x, w, b, self.stride, self.padding, self.output_padding)
+
+    monkeypatch.setattr(layers.ConvTranspose, '_transpose', old_forward)
+    old = readings()
+    print('float32 SEAN steps against float64: repaired', repaired,
+          'old forward', old, f'({sum(r > SEAN_REPEAT_BAR for r in old)} of '
+          f'{SEAN_REPEATS} above {SEAN_REPEAT_BAR})')
+    assert max(repaired) <= SEAN_REPEAT_BAR, repaired
 
 
 @pytest.mark.cuda
@@ -661,3 +715,151 @@ def test_sean_remat_blocks_on_card(card):
         torch.backends.cudnn.deterministic = False
     _hold_step(trees[1], trees[0], init, {'gen': 1e-4, 'dis': 4e-4},
                bar=1e-6)
+
+
+# ChunkRunner on the card (training/chunked.py): the step captured once as
+# a CUDA graph and replayed, against the same steps taken eagerly.
+def _tiny_shape_case(card, nan_at=None):
+    """(trainer, state, make_batch, make_draws) of a tiny shape trainer on
+    the card; the batches drawn on the host from the seed and sent through
+    pinned memory, a NaN in the face mask of the batch of seed nan_at."""
+    from ctrlhair_tpu_torch.training.predictor_trainer import to_device
+    from ctrlhair_tpu_torch.training.shape_trainer import (
+        ShapeTrainer, synthetic_batch)
+    cfg = C.ShapeConfig(img_size=32, layer_num=3, max_channel=32,
+                        hidden_in_channel=8, d_hidden_in_channel=8,
+                        face_dim=64, d_hidden_dim=32, kl_free_bits=0.25,
+                        lambda_geo=30.0, lambda_info=1.0)
+    tr = ShapeTrainer(cfg, device=card, seed=3)
+
+    def make_batch(seed):
+        batch = synthetic_batch(torch.Generator().manual_seed(seed), cfg, 4)
+        if seed == nan_at:
+            batch['face'][1, 3, 4, 0] = float('nan')
+        return {k: to_device(v, card) for k, v in batch.items()}
+
+    return tr, tr.init_state(0), make_batch, lambda s: tr.draws(s, 4)
+
+
+def _tiny_landmark_case(card):
+    from ctrlhair_tpu_torch.data.landmark_dataset import training_batch
+    from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
+    from ctrlhair_tpu_torch.training.landmark_trainer import LandmarkTrainer
+    from ctrlhair_tpu_torch.training.predictor_trainer import to_device
+    cfg = LandmarkNetConfig(input_size=32, base_channels=4, stages=2,
+                            hidden_dim=16)
+    tr = LandmarkTrainer(cfg, device=card)
+
+    def make_batch(seed):
+        return {k: to_device(torch.tensor(v), card) for k, v in
+                training_batch(np.random.default_rng(seed), 8,
+                               cfg.input_size).items()}
+
+    return tr, tr.init_state(0), make_batch, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['shape', 'landmark'])
+def test_chunked_graph_on_card_equals_eager(card, which):
+    """5 steps in chunks of 2 (a remainder of 1) through one captured
+    graph against the same 5 steps taken eagerly from the same state, a
+    NaN batch at step 3 of the shape trainer: the states bit-identical, the
+    step and Adam's count advanced (the NaN step counts a trip and no
+    update), the rows equal.  With deterministic cuDNN, on both sides:
+    under cuDNN's defaults two eager runs of the shape steps already
+    differ in the last bits (chip_smoke.py's phase (m) prints both gaps)."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        _chunked_against_eager(card, which)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _chunked_against_eager(card, which):
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    nan_at = 3 if which == 'shape' else None
+    make = (lambda: _tiny_shape_case(card, nan_at)) if which == 'shape' \
+        else (lambda: _tiny_landmark_case(card))
+    tr, ref, make_batch, make_draws = make()
+    ref_rows = []
+    for s in range(5):
+        args = () if make_draws is None else (make_draws(s),)
+        ref, m = tr.train_step(ref, make_batch(s), *args)
+        ref_rows.append({k: float(v) for k, v in m.items()})
+    tr, state, make_batch, make_draws = make()
+    runner = ChunkRunner(tr.train_step, make_batch, make_draws=make_draws)
+    seen = []
+    state, rows, trips = runner.run(
+        state, 0, 5, chunk_size=2, record_every=1,
+        on_chunk=lambda s, st, rws: seen.append(s))
+    assert seen == [2, 4, 5] and runner.captures == 1
+    assert trips == (1 if nan_at is not None else 0)
+    assert state.step == 5
+    model = state.gen if which == 'shape' else state.model
+    assert int(model.count) == 5 - trips
+    np.testing.assert_array_equal(
+        [[r[k] for k in sorted(ref_rows[0])] for r in rows],
+        [[r[k] for k in sorted(r)] for r in ref_rows])
+    for a, b in zip(state.tensors(), ref.tensors()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chunked_graph_capture_failure_raises(card):
+    """A step that reads a value on the host cannot be captured: run raises
+    the capture's error (no eager fall-back) and leaves the state where it
+    was."""
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    tr, state, make_batch, make_draws = _tiny_shape_case(card)
+    before = [t.clone() for t in state.tensors()]
+
+    def host_read_step(st, batch, draws):
+        st, m = tr.train_step(st, batch, draws)
+        float(m['g_total'])
+        return st, m
+
+    runner = ChunkRunner(host_read_step, make_batch, make_draws=make_draws)
+    with pytest.raises(RuntimeError):
+        runner.run(state, 0, 2, chunk_size=2)
+    assert state.step == 0 and runner.captures == 0
+    torch.cuda.synchronize()
+    for a, b in zip(state.tensors(), before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_conv_transpose_on_card_takes_deterministic_algorithms(card):
+    """The port's ConvTranspose on a CUDA tensor runs its forward with
+    cuDNN's deterministic algorithms whatever the global setting (with the
+    default ones the float32 SEAN step, whose Zencoder has one, went off in
+    some steps): with cuDNN's defaults its output equals
+    F.conv_transpose2d's under deterministic cuDNN bit for bit, and the
+    output and the input and weight gradients stand within 1e-5 of the
+    CPU's float64."""
+    from ctrlhair_tpu_torch.models.layers import (
+        TorchConvTranspose, init_parameters_, set_compute_dtype)
+    up = TorchConvTranspose(16, 32, 3, 2, 1, 1)
+    init_parameters_(up, torch.Generator().manual_seed(9))
+    x0 = torch.tensor(np.random.default_rng(9).standard_normal(
+        (4, 16, 32, 32)), dtype=torch.float32)
+    runs = []
+    for device, dtype in (('cpu', torch.float64), ('cuda', torch.float32)):
+        up.to(device=device, dtype=dtype)
+        set_compute_dtype(up, dtype)
+        x = x0.to(device=device, dtype=dtype).requires_grad_(True)
+        y = up(x)
+        gx, gw = torch.autograd.grad((y * y).sum(), (x, up.conv.weight))
+        runs.append([t.detach() for t in (y, gx, gw)])
+    torch.backends.cudnn.deterministic = True
+    try:
+        conv = up.conv
+        with torch.no_grad():
+            y = torch.nn.functional.conv_transpose2d(
+                x0.to(card), conv.weight, conv.bias, conv.stride,
+                conv.padding, conv.output_padding)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert torch.equal(runs[1][0], y)
+    for got, ref in zip(runs[1], runs[0]):
+        scale = float(ref.abs().max())
+        assert float((got.double().cpu() - ref).abs().max()) <= 1e-5 * scale

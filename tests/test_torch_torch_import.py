@@ -352,3 +352,21 @@ def test_load_reference_tree(tiny_editor, tmp_path):
     for key, value in explicit.state_dict().items():
         torch.testing.assert_close(got[key], value, rtol=0, atol=0,
                                    msg=key)
+
+
+def test_chunked_runner_loads_no_jax():
+    """training/chunked.py and what it imports load no module of JAX,
+    flax or the JAX package (a fresh interpreter's sys.modules after the
+    import; the static scan of every port file is in
+    tests/test_torch_checkpoint.py)."""
+    import os
+    import subprocess
+    import sys
+    code = ('import sys; import ctrlhair_tpu_torch.training.chunked; '
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "flax", "ctrlhair_tpu")))')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, check=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.stdout.strip() == '[]', out.stdout
