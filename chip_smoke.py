@@ -63,10 +63,13 @@ Drives the port's four paths at the full default PipelineConfig() width:
      colour/texture, shape, face-parser and SEAN trainers of the training
      phase at their configs and batches, two steps through the group held
      bit-equal to two plain steps, then timed against them, the gradient
-     reduce alone by CUDA events; (k2) the face parser at 32 px on two
-     gloo ranks on cuda:0 against one process on the global batch; (k3)
-     run_bisenet under python -m torch.distributed.run --nproc_per_node 1,
-     resumed in this process;
+     reduce alone by CUDA events, and the face parser through
+     ChunkRunner over the NCCL group, its collectives captured in the CUDA
+     graph, bit-identical to the same eager steps; (k2) the face parser at
+     32 px on two gloo ranks on cuda:0 against one process on the global
+     batch (run in the two ranks phase (l) spawns); (k3) run_bisenet under
+     python -m torch.distributed.run --nproc_per_node 1, resumed in this
+     process;
   7. tensor parallelism, phase (l), its launch counts set to 0 before it
      and read after it: two gloo ranks on cuda:0 as make_mesh(2, tp=2)
      (dp 1), the shape trainer of (e) on its first batches and the
@@ -81,15 +84,22 @@ Drives the port's four paths at the full default PipelineConfig() width:
      read after it: training/chunked.ChunkRunner with each step captured
      once as a CUDA graph and replayed, one host read of the metrics a
      chunk: the shape trainer of (e), batch 4 gathered on the card from
-     the warp pool of (d), 9 steps in chunks of 4, and the landmark
-     trainer of (g), batch 64 gathered on the card from (g)'s rendered
-     faces, 17 steps in chunks of 8; each held to the eager per-step loop
-     from the same state and streams (bit-identical with deterministic
-     cuDNN; the graph captured under cuDNN's defaults within 1e-3 after
-     its first step), with a NaN batch inside a chunk (one trip) and
-     a run resumed at step 4 bit-identical to the straight one; eager and
-     chunked ms a step, capture ms, kernels and runtime calls a step, the
-     idle share of one chunk and peak memory.
+     the warp pool of (d), 5 steps in chunks of 2, the landmark trainer
+     of (g), batch 64 gathered on the card from (g)'s rendered faces, 9
+     steps in chunks of 4, then from pools on the card the colour/texture
+     trainer at ColorTextureConfig(), batch 128, lambda_rec_img off (9 in
+     chunks of 4) and on through a frozen seeded SEANConfig() SEAN (5 in
+     chunks of 2), both predictor trainers, batch 256 (17 in chunks of
+     8), the face parser at BiSeNetConfig(), batch 16 (9 in chunks of 4)
+     and the SEAN trainer at SEANConfig(), batch 4 (5 in chunks of 2);
+     each held to the eager per-step loop from the same state and streams
+     (bit-identical with deterministic cuDNN, SEAN's u vectors bit for
+     bit; the graph captured under cuDNN's defaults within 1e-3 after its
+     first step), with a NaN batch inside the second chunk (one trip), a
+     run resumed inside the run bit-identical to the straight one, and one
+     capture a runner; eager and chunked ms a step, capture ms, kernels
+     and runtime calls a step, the idle share of one chunk and peak
+     memory.
 Builds every hand-written kernel of those paths from csrc/ (and the native
 host library from native/), holds each kernel against its plain PyTorch
 version on the card (the masked CG on shapes that take its cluster kernel
@@ -966,7 +976,7 @@ def phase_warp_routes(be, parses, mesh):
     return {'routes_agree': agree}, times
 
 
-DEPLOYMENT_REPS = 3
+DEPLOYMENT_REPS = 2
 # families shipped in model_trained/ (as the editor names them), and the
 # two that are not (their checkpoints are distributed separately)
 SHIPPED = {'bisenet', 'ct_gen', 'ct_dis', 'rgb_pred', 'curliness_pred'}
@@ -1638,10 +1648,6 @@ def bit_equal(got, ref) -> bool:
         for (_, a), (_, b) in zip(g, r))
 
 
-def without_step(tree):
-    return {k: v for k, v in tree.items() if k != 'step'}
-
-
 def to_device(batch, device):
     return {k: v.to(device) for k, v in batch.items()}
 
@@ -1702,10 +1708,32 @@ def trained_modules(state) -> list:
     return [part.module for part in parts]
 
 
+def state_parts(state) -> dict:
+    """{part: its ModelOpt or SGDModelOpt} of a train state."""
+    return state.parts() if hasattr(state, 'parts') else \
+        {'model': state.model}
+
+
+def tensor_names(state) -> list:
+    """A name for each tensor of state.tensors(), in its order."""
+    names = []
+    for part, m in state_parts(state).items():
+        names += [f'{part}/{n}' for n, _ in m.module.named_parameters()]
+        names += [f'{part}/{n}' for n, _ in m.module.named_buffers()]
+        for key in ('mu', 'nu', 'trace'):
+            names += [f'{part}/{key}/{n}' for n in getattr(m, key, {})]
+        if hasattr(m, 'count'):
+            names.append(f'{part}/count')
+    for key in ('sn_u', 'dis_sn_u'):
+        names += [f'{key}/{n}' for n in (getattr(state, key, None) or {})]
+    return names
+
+
 def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
-    """(state tree, metrics) after one step on `device` from `init_tree`,
-    the models computing in `dtype` (None: as built); `draws` None for a
-    trainer whose step draws nothing."""
+    """(state, metrics, {part: its parameters before the step}) after one
+    step on `device` from `init_tree`, the models computing in `dtype`
+    (None: as built); `draws` None for a trainer whose step draws
+    nothing."""
     from ctrlhair_tpu_torch.models.layers import set_compute_dtype
     with lap(f'check build {device}'):
         trainer, state, args = make_trainer(device)
@@ -1714,6 +1742,8 @@ def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
         frozen = [m for m in (getattr(trainer, 'vgg', None),) if m is not None]
         for module in trained_modules(state) + frozen:
             set_compute_dtype(module, dtype)
+    init = {k: [p.detach().clone() for p in m.params()]
+            for k, m in state_parts(state).items()}
     b = to_device(batch, device)
     extra = () if draws is None else ({
         k: ([m.to(device) for m in v] if isinstance(v, list)
@@ -1721,15 +1751,53 @@ def one_step(make_trainer, init_tree, batch, draws, device, dtype=None):
     with lap(f'check step {device}'):
         state, metrics = trainer.train_step(state, b, *args(state), *extra)
         metrics = {k: v.cpu() for k, v in metrics.items()}
-    with lap('check to_tree'):
-        return state.to_tree(), metrics
+    return state, metrics, init
 
 
-def tree_copy(tree):
-    """A copy of a tree's dicts that shares its arrays (held_to_cpu
-    replaces leaves, it writes into none)."""
-    return {k: tree_copy(v) for k, v in tree.items()} \
-        if isinstance(tree, dict) else tree
+@torch.no_grad()
+def held_on_card(card, card_m, ref, cpu_m, init, lr: dict,
+                 bar: float = TRAIN_CARD_BAR) -> dict:
+    """held_to_cpu, computed on the card over the live states: `card` the
+    card's state, `ref` the CPU state's tensors copied to the card (in
+    state.tensors()'s order), `init` {part: the parameters before the
+    step} on the card.  The same values as held_to_cpu over the two
+    states' trees, without a copy of the card's state to the host."""
+    loss_err = check_metrics(card_m, cpu_m, 'card against CPU', True, bar)
+    got = list(card.tensors())
+    ref = list(ref)
+    index = {id(t): i for i, t in enumerate(got)}
+    noisy = 0
+    for part, part_lr in lr.items():
+        m = state_parts(card)[part]
+        for p, mu, p0 in zip(m.params(), m.mu.values(), init[part]):
+            i, j = index[id(p)], index[id(mu)]
+            mask = (mu - ref[j]).abs() > 1e-2 * ref[j].abs()
+            if not bool(mask.any()):
+                continue
+            for side in (got[i], ref[i]):
+                moved = float((side - p0).abs()[mask].max())
+                if moved > 2 * part_lr:
+                    raise AssertionError(
+                        f'{part}: an entry with a noise gradient moved '
+                        f'{moved:.3g} > 2 lr')
+            got[i] = torch.where(mask, 0.0, got[i])
+            ref[i] = torch.where(mask, 0.0, ref[i])
+            noisy += int(mask.sum())
+    names = tensor_names(card)
+    worst, where = 0.0, None
+    for k, (a, b) in enumerate(zip(got, ref, strict=True)):
+        if b.numel() == 0:
+            continue
+        d = float((a.double() - b.double()).abs().max()) / max(
+            1.0, float(b.double().abs().max()))
+        if not d <= worst:
+            worst, where = d, names[k] if len(names) == len(got) else k
+    if not worst <= bar:
+        raise AssertionError(f'card against CPU: {where} differs by '
+                             f'{worst:.3g} (bar {bar})')
+    return {'state_max_scaled_err': worst, 'worst_leaf': where,
+            'loss_max_scaled_err': loss_err,
+            'noise_gradient_entries': noisy}
 
 
 def held_to_cpu(card, card_m, cpu, cpu_m, init_tree, lr: dict,
@@ -1772,29 +1840,29 @@ def card_against_cpu(make_trainer, init_tree, batch, draws, lr: dict,
                      dtype=None, float32: bool = False):
     """One step on the card against the port's CPU step from the same
     state, batch and draws, both computing in `dtype` (None: as built),
-    held as held_to_cpu says.  With `float32`, the card's step as built
-    (float32) is held against that CPU step to FLOAT32_CARD_BAR under
-    'float32'."""
-    cpu = {}
-
-    def cpu_step(dt):
-        if dt not in cpu:
-            cpu[dt] = one_step(make_trainer, init_tree, batch, draws, 'cpu',
-                               dt)
-        tree, metrics = cpu[dt]
-        return tree_copy(tree), metrics
-
-    card, card_m = one_step(make_trainer, init_tree, batch, draws, 'cuda',
-                            dtype)
-    ref = cpu_step(dtype)
-    with lap('check compare'):
-        out = held_to_cpu(card, card_m, *ref, init_tree, lr)
-    if float32:
-        card, card_m = one_step(make_trainer, init_tree, batch, draws,
-                                'cuda', None)
+    held as held_to_cpu says (held_on_card: the CPU's state is copied to
+    the card and the two compared there).  With `float32`, the card's
+    step as built (float32) is held against that CPU step to
+    FLOAT32_CARD_BAR under 'float32'."""
+    cpu, cpu_m = one_step(make_trainer, init_tree, batch, draws, 'cpu',
+                          dtype)[:2]
+    with lap('check copy'):
+        ref = [t.to('cuda') for t in cpu.tensors()]
+    del cpu
+    out = {}
+    for key, dt, bar in (('', dtype, TRAIN_CARD_BAR),
+                         ('float32', None, FLOAT32_CARD_BAR)):
+        if key and not float32:
+            continue
+        card, m, init = one_step(make_trainer, init_tree, batch, draws,
+                                 'cuda', dt)
         with lap('check compare'):
-            out['float32'] = held_to_cpu(card, card_m, *cpu_step(dtype),
-                                         init_tree, lr, bar=FLOAT32_CARD_BAR)
+            held = held_on_card(card, m, ref, cpu_m, init, lr, bar)
+        del card, init
+        if key:
+            out[key] = held
+        else:
+            out.update(held)
     return out
 
 
@@ -1806,30 +1874,33 @@ def nan_and_resume(make_trainer, init_tree, batches, nan_batch,
     the entry points of (c) and (h) write the colour/texture, shape,
     face-parser, landmark and SEAN checkpoints at these widths and read
     them back equal (the predictors' few MB are the CPU tests'), so the
-    disk would add nothing here but seconds.
-    `moved(before, after)`: for a state that a NaN step rightly moves in
-    part (the SEAN trainer's u vectors), checks those leaves and returns
-    their keys, which the bit identity leaves out."""
+    disk would add nothing here but seconds.  The states are compared
+    tensor for tensor on the card (state.tensors(): every leaf of the
+    tree), which copies nothing to the host.
+    `moved(state, before)`: for a state that a NaN step rightly moves in
+    part (the SEAN trainer's u vectors), checks those tensors against the
+    state's tensors before the step and returns the names of the state's
+    dicts of them, which the bit identity leaves out."""
+    def same(state, ref, skip=()):
+        left_out = {id(t) for k in skip for t in getattr(state, k).values()}
+        return all(torch.equal(a, b) for a, b in zip(state.tensors(), ref,
+                                                     strict=True)
+                   if id(a) not in left_out)
+
     with lap('nan_resume build'):
         trainer, state, args = make_trainer('cuda')
         state.load_tree(init_tree)
     with lap('nan_resume steps'):
         for b in batches:
             state, _ = trainer.train_step(state, b, *args(state))
-        with lap('nan_resume to_tree'):
-            unbroken = state.to_tree()
+        unbroken = [t.clone() for t in state.tensors()]
+        step = state.step
         state, m = trainer.train_step(state, nan_batch, *args(state))
-    with lap('nan_resume to_tree'):
-        after = state.to_tree()
     with lap('nan_resume compare'):
-        skip = moved(unbroken, after) if moved else ()
-        kept = lambda t: {k: v for k, v in without_step(t).items()
-                          if k not in skip}
-        if bool(m['finite']) or \
-                int(after['step']) != int(unbroken['step']) + 1 or \
-                not bit_equal(kept(after), kept(unbroken)):
+        skip = moved(state, unbroken) if moved else ()
+        if bool(m['finite']) or state.step != step + 1 or \
+                not same(state, unbroken, skip):
             raise AssertionError('a NaN batch moved the training state')
-    del after
     with lap('nan_resume build'):
         trainer, state, args = make_trainer('cuda')
         state.load_tree(init_tree)
@@ -1847,7 +1918,7 @@ def nan_and_resume(make_trainer, init_tree, batches, nan_batch,
         for b in batches[last + 1:]:
             state, _ = trainer.train_step(state, b, *args(state))
     with lap('nan_resume compare'):
-        if not bit_equal(state.to_tree(), unbroken):
+        if state.step != step or not same(state, unbroken):
             raise AssertionError('the run resumed after step 2 differs from '
                                  'the unbroken run')
     return {'nan_state_bit_identical': True, 'resume_bit_identical': True,
@@ -1946,9 +2017,9 @@ def phase_train_ct(smi: str, dp_cases: dict):
                           requires_grad=True)
     sean_fn = lambda: torch.autograd.grad(
         trainer._rec_img_hair_mse(ae_code, batches[0]), ae_code)
-    sean_ms = wall_ms(sean_fn, 5)
-    sean_ms_det = deterministic(wall_ms)(sean_fn, 5)
-    sean_ms_tuned = autotuned(wall_ms)(sean_fn, 5)
+    sean_ms = wall_ms(sean_fn, 3)
+    sean_ms_det = deterministic(wall_ms)(sean_fn, 3)
+    sean_ms_tuned = autotuned(wall_ms)(sean_fn, 3)
     prof_on = profile_step(lambda: trainer.train_step(
         state, batches[0], *args(state)), float(np.median(ms_on[1:])))
     prof_off = profile_step(lambda: trainer_off.train_step(
@@ -2457,34 +2528,25 @@ def conv_transpose_times(smi: str) -> dict:
     return out
 
 
-def sn_power_iteration(w_tree, u_tree, path=()):
-    """{path: u'} of one power iteration from u over each kernel of a flax
-    tree (HWIO, as [kh*kw*in, out]), in numpy float64."""
-    out = {}
-    for k, u in u_tree.items():
-        if isinstance(u, dict):
-            out.update(sn_power_iteration(w_tree[k], u, path + (k,)))
-        elif u is not None:
-            w = np.asarray(w_tree[k], np.float64)
-            mat = w.reshape(-1, w.shape[-1])
-            v = mat.T @ np.asarray(u, np.float64)
-            v /= np.linalg.norm(v) + 1e-12
-            new = mat @ v
-            out[path + (k,)] = new / (np.linalg.norm(new) + 1e-12)
-    return out
-
-
-def sean_u_moved(before, after):
+@torch.no_grad()
+def sean_u_moved(state, before: list):
     """A NaN step of the SEAN trainer: each u vector is one power iteration
-    on from the unchanged weights (JAX's rule), within 1e-5."""
-    for key, part in (('sn_u', 'gen'), ('dis_sn_u', 'dis')):
-        want = sn_power_iteration(before[part]['params']['params'],
-                                  before[key])
-        got = dict(tree_leaves(after[key]))
-        if set(got) != set(want) or any(
-                not np.abs(got[p] - want[p]).max() <= 1e-5 for p in want):
-            raise AssertionError(f'a NaN step moved {key} other than by one '
-                                 'power iteration')
+    on from the unchanged weights (JAX's rule), within 1e-5, computed in
+    float64 on the card over each kernel as [kh*kw*in, out], as JAX lays
+    it out; `before` the state's tensors before the step."""
+    index = {id(t): i for i, t in enumerate(state.tensors())}
+    for key, part in (('sn_u', state.gen), ('dis_sn_u', state.dis)):
+        params = dict(part.module.named_parameters())
+        for name, u in getattr(state, key).items():
+            w = params[name].double()
+            mat = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+            v = mat.t() @ before[index[id(u)]].double()
+            v /= torch.linalg.vector_norm(v) + 1e-12
+            want = mat @ v
+            want /= torch.linalg.vector_norm(want) + 1e-12
+            if not float((u.double() - want).abs().max()) <= 1e-5:
+                raise AssertionError(f'a NaN step moved {key} other than '
+                                     'by one power iteration')
     return ('sn_u', 'dis_sn_u')
 
 
@@ -2738,9 +2800,17 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
 # two ranks on the one card over gloo, whose CUDA support covers the two
 # collectives the face parser's step needs (all_reduce and broadcast;
 # NCCL takes one rank a card): the parser at a small config, one step,
-# against the single process on the global batch.  (k3) run_bisenet under
-# python -m torch.distributed.run, resumed in this process.
-DP_CHECK_STEPS, DP_TIME_STEPS, DP_GAP_BAR = 2, 4, 1e-6
+# against the single process on the global batch; it runs in the two ranks
+# that phase (l) spawns, as a dp mesh of its own, before (l)'s steps (a
+# spawn of two ranks costs seconds).  (k3) run_bisenet under
+# python -m torch.distributed.run, resumed in this process.  And in (k1),
+# the face parser over the group through ChunkRunner: K1_CHUNK_STEPS steps
+# in chunks of K1_CHUNK_SIZE, its collectives (the gradient buckets, the
+# metrics' mean, synced batch norm) captured in the CUDA graph, against
+# the same steps taken eagerly through the group, bit for bit
+# (deterministic cuDNN).
+DP_CHECK_STEPS, DP_TIME_STEPS, DP_GAP_BAR = 2, 3, 1e-6
+K1_CHUNKED, K1_CHUNK_STEPS, K1_CHUNK_SIZE = 'bisenet', 5, 2
 K2_WORLD, K2_BATCH, K2_BAR = 2, 8, 1e-5
 K2_CFG = dict(input_size=32, blocks_per_stage=1)
 
@@ -2789,18 +2859,18 @@ def dp_trainer_case(name, make, batches, mesh, smi) -> dict:
 
     @deterministic
     def checked_steps():
+        """The two states after the checked steps, compared tensor for
+        tensor on the card: (bit-identical, worst scaled gap)."""
         for b in batches[:DP_CHECK_STEPS]:
             for key in ('plain', 'dp'):
                 step(key, b)
-        return sides['plain'][1].to_tree(), sides['dp'][1].to_tree()
+        return state_gap(sides['dp'][1].tensors(),
+                         sides['plain'][1].tensors())
 
-    plain_tree, dp_tree = checked_steps()
-    same = bit_equal(dp_tree, plain_tree)
-    gap, where = (0.0, None) if same else tree_diff(dp_tree, plain_tree)
+    same, gap = checked_steps()
     if not same and not gap <= DP_GAP_BAR:
         raise AssertionError(f'{name}: the one-rank DP state stands {gap:.3g} '
-                             f'from the plain one at {where} (bar '
-                             f'{DP_GAP_BAR})')
+                             f'from the plain one (bar {DP_GAP_BAR})')
     ms = {'plain': [], 'dp': []}
     collectives = 0
     for i in range(DP_TIME_STEPS):
@@ -2824,14 +2894,14 @@ def dp_trainer_case(name, make, batches, mesh, smi) -> dict:
     plain_ms = float(np.median(ms['plain'][1:]))
     dp_ms = float(np.median(ms['dp'][1:]))
     rec = {'trained_parameters': n_params, 'grad_bytes': 4 * n_params,
-           'bit_equal': same, 'gap': gap, 'gap_leaf': where,
+           'bit_equal': same, 'gap': gap,
            'reduce_ms': reduce_ms, 'reduce_share': reduce_ms / dp_ms,
            'plain_step_ms': ms['plain'], 'dp_step_ms': ms['dp'],
            'plain_median_ms': plain_ms, 'dp_median_ms': dp_ms,
            'collectives_per_step': collectives}
     log(f'[parallel] k1 {name}: {DP_CHECK_STEPS} one-rank NCCL DP steps '
         f'against {DP_CHECK_STEPS} plain steps: '
-        + ('bit-identical' if same else f'gap {gap:.3g} at {where}')
+        + ('bit-identical' if same else f'gap {gap:.3g}')
         + f'; {n_params} trained parameters, {4 * n_params} B of gradient '
         f'reduced a step in {reduce_ms:.3f} ms (CUDA events, '
         f'{100 * reduce_ms / dp_ms:.2f}% of a DP step); DP step '
@@ -2840,47 +2910,65 @@ def dp_trainer_case(name, make, batches, mesh, smi) -> dict:
     return rec
 
 
-def phase_parallel(dp_cases: dict, smi: str):
-    """Phase (k): (k1), (k2) and (k3) as the comment above them says; the
-    launch counts set to 0 before it and read after it (no kernel of the
-    port runs on this path)."""
-    import contextlib
-    import io
-    import tempfile
-    import torch.distributed as dist
-    from ctrlhair_tpu_torch.parallel.dryrun import run_on_ranks
-    from ctrlhair_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
-    from ctrlhair_tpu_torch.training import run_bisenet
-    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
-    reset_launches()
-    rec, seconds = {}, {}
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        device = initialize_runtime(
-            'cuda', init_method=f'file://{os.path.join(tmp, "store")}',
-            world_size=1, rank=0, timeout=300.0)
-        try:
-            mesh = make_mesh(1, device=device)
-            for name in ('color_texture', 'shape', 'bisenet', 'sean'):
-                make, batches = dp_cases.pop(name)
-                rec[name] = dp_trainer_case(name, make, batches, mesh, smi)
-                del make, batches
-                gc.collect()
-                torch.cuda.empty_cache()
-        finally:
-            dist.destroy_process_group()
-    seconds['k1'] = time.perf_counter() - t0
+@deterministic
+def k1_chunked_case(name, make, batches, mesh, smi) -> dict:
+    """(k1) one trainer over the one-rank NCCL group through ChunkRunner,
+    as the comment above says."""
+    from ctrlhair_tpu_torch.parallel.mesh import replicated, shard_batch
+    from ctrlhair_tpu_torch.training.chunked import WARMUP_STEPS, ChunkRunner
+    def make_batch(seed):
+        return shard_batch(batches[seed % len(batches)], mesh)
 
-    # (k2) two ranks on the one card over gloo
+    trainer, state, args = make('cuda', mesh=mesh)
+    replicated(state, mesh)
+    for s in range(K1_CHUNK_STEPS):
+        state, _ = trainer.train_step(state, make_batch(s), *args(state))
+    eager = [t.clone() for t in state.tensors()]
+    del trainer, state
+    # the chunked run on a state of its own, from the same seed
+    trainer, state, args = make('cuda', mesh=mesh)
+    replicated(state, mesh)
+    runner = ChunkRunner(trainer.train_step, make_batch)
+    before = mesh.collectives
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
+    state, rows, trips = runner.run(state, 0, K1_CHUNK_STEPS,
+                                    chunk_size=K1_CHUNK_SIZE, record_every=1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    per_step = (mesh.collectives - before) / (WARMUP_STEPS + 1)
+    identical, gap = state_gap(state.tensors(), eager)
+    if not identical or trips != 0 or runner.captures != 1 or \
+            state.step != K1_CHUNK_STEPS or not per_step:
+        raise AssertionError(
+            f'(k1) {name} chunked over the NCCL group: bit-identical '
+            f'{identical} (gap {gap:.3g}), {trips} trips, '
+            f'{runner.captures} captures, {per_step} collectives a step')
+    log(f'[parallel] k1 {name} through ChunkRunner over the one-rank NCCL '
+        f'group: {K1_CHUNK_STEPS} steps in chunks of {K1_CHUNK_SIZE}, '
+        f'{per_step:.0f} collectives a step captured in the graph, '
+        f'bit-identical to the same eager steps through the group; '
+        f'{wall:.1f} ms with the capture of {runner.capture_ms[0]:.1f} ms '
+        f'(deterministic cuDNN; {smi})')
+    return {'steps': K1_CHUNK_STEPS, 'chunk_size': K1_CHUNK_SIZE,
+            'bit_identical': identical, 'finite_trips': trips,
+            'captures': runner.captures,
+            'collectives_per_step': per_step, 'wall_ms': wall,
+            'capture_ms': runner.capture_ms[0]}
+
+
+def k2_batch() -> dict:
+    """(k2)'s global batch, from the seed (numpy)."""
     rng = np.random.default_rng(SEED)
     s = K2_CFG['input_size']
-    batch = {'image': rng.standard_normal((K2_BATCH, s, s, 3)).astype(
-                 np.float32),
-             'label': rng.integers(0, 19, (K2_BATCH, s, s)).astype(np.int32)}
-    per_rank = run_on_ranks(k2_rank, K2_WORLD, batch, device='cuda:0',
-                            backend='gloo', deadline_s=300.0)
+    return {'image': rng.standard_normal((K2_BATCH, s, s, 3)).astype(
+                np.float32),
+            'label': rng.integers(0, 19, (K2_BATCH, s, s)).astype(np.int32)}
 
+
+def k2_check(per_rank: list, batch: dict) -> dict:
+    """(k2): the ranks' face-parser steps (k2_rank's readings) against one
+    process on the global batch."""
     from ctrlhair_tpu_torch.config import BiSeNetConfig
     from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
     trainer = BiSeNetTrainer(BiSeNetConfig(**K2_CFG), device='cuda')
@@ -2896,14 +2984,48 @@ def phase_parallel(dp_cases: dict, smi: str):
         raise AssertionError(f'(k2) {K2_WORLD} gloo ranks on the card '
                              f'against one process: gaps {gaps} (bar '
                              f'{K2_BAR}), finite {[f for _, f, _ in per_rank]}')
-    rec['k2'] = {'world': K2_WORLD, 'backend': 'gloo', 'batch': K2_BATCH,
-                 'config': f'BiSeNetConfig({K2_CFG})', 'gap': gaps[0][0],
-                 'gap_leaf': gaps[0][1], 'collectives': per_rank[0][2]}
-    seconds['k2'] = time.perf_counter() - t0
     log(f'[parallel] k2 face parser BiSeNetConfig({K2_CFG}), global batch '
-        f'{K2_BATCH} on {K2_WORLD} gloo ranks on cuda:0: ranks '
-        f'bit-identical, {gaps[0][0]:.3g} from one process at {gaps[0][1]} '
-        f'(bar {K2_BAR}); {per_rank[0][2]} collectives in the run')
+        f'{K2_BATCH} on {K2_WORLD} gloo ranks on cuda:0 (the ranks of phase '
+        f'(l), as a dp mesh): ranks bit-identical, {gaps[0][0]:.3g} from one '
+        f'process at {gaps[0][1]} (bar {K2_BAR}); {per_rank[0][2]} '
+        'collectives in the run')
+    return {'world': K2_WORLD, 'backend': 'gloo', 'batch': K2_BATCH,
+            'config': f'BiSeNetConfig({K2_CFG})', 'gap': gaps[0][0],
+            'gap_leaf': gaps[0][1], 'collectives': per_rank[0][2]}
+
+
+def phase_parallel(dp_cases: dict, smi: str):
+    """Phase (k): (k1) and (k3) as the comment above them says ((k2) runs
+    in phase (l)'s ranks); the launch counts set to 0 before it and read
+    after it (no kernel of the port runs on this path)."""
+    import contextlib
+    import io
+    import tempfile
+    import torch.distributed as dist
+    from ctrlhair_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
+    from ctrlhair_tpu_torch.training import run_bisenet
+    from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
+    reset_launches()
+    rec, seconds = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        device = initialize_runtime(
+            'cuda', init_method=f'file://{os.path.join(tmp, "store")}',
+            world_size=1, rank=0, timeout=300.0)
+        try:
+            mesh = make_mesh(1, device=device)
+            for name in ('color_texture', 'shape', 'bisenet', 'sean'):
+                make, batches = dp_cases.pop(name)
+                rec[name] = dp_trainer_case(name, make, batches, mesh, smi)
+                if name == K1_CHUNKED:
+                    rec[f'{name}_chunked'] = k1_chunked_case(
+                        name, make, batches, mesh, smi)
+                del make, batches
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    seconds['k1'] = time.perf_counter() - t0
 
     # (k3) run_bisenet under the launcher, then resumed in this process
     t0 = time.perf_counter()
@@ -2960,19 +3082,22 @@ def phase_parallel(dp_cases: dict, smi: str):
 # tp shards, and two copies of its step on one card buy nothing), the
 # batches of phase (a).  For each: rank 0 first takes TP_STEPS plain steps
 # in one process (float32, timed), then both ranks take TP_STEPS
-# tensor-parallel steps (float32, timed), the two ranks' gathered trees
-# bit-identical (a digest each); a NaN batch must leave the state
+# tensor-parallel steps (float32, timed); a NaN batch must leave the state
 # bit-identical on both ranks, and the whole tree after step 1 (gathered,
 # as rank 0 writes it in run_training; the disk round trip is the CPU
 # tests') read into a new state on both ranks and stepped on must equal
 # the unbroken run bit for bit (each rank's own slices compared: equal
 # slices are equal gathered trees, and a gather of the shape state over
-# gloo takes seconds).  The steps are held to one process with the models
-# computing in float64 on both sides, as the training phase holds the
-# shape step (trainer_phase): in float32 the shape step's own error
+# gloo takes seconds).  The first TP_HELD_STEPS steps are held to one
+# process with the models computing in float64 on both sides (the two
+# ranks' gathered trees of these steps bit-identical, a digest each), as
+# the training phase holds the shape step (trainer_phase): in float32 the
+# shape step's own error
 # reaches the bar; TP_BAR of each leaf's scale, the noise exemption of
 # held_to_cpu.  Deterministic cuDNN, TF32 off.
 TP_WORLD, TP_SIZE, TP_STEPS, TP_BAR = 2, 2, 2, 1e-4
+# steps of the float64 hold (two until PR 11; one for room in the smoke)
+TP_HELD_STEPS = 1
 
 
 def tp_trainer(family: str, cfg, device, mesh):
@@ -3013,7 +3138,7 @@ def tree_digest(tree) -> str:
     h = hashlib.sha256()
     for path, a in tree_leaves(tree):
         h.update('/'.join(path).encode())
-        h.update(np.ascontiguousarray(a).tobytes())
+        h.update(memoryview(np.ascontiguousarray(a)).cast('B'))
     return h.hexdigest()
 
 
@@ -3046,19 +3171,23 @@ def timed_steps(trainer, state, extra, batches, mesh=None):
     return state, metrics, ms, coll
 
 
-def l_rank(mesh, specs):
-    """Phase (l) on one rank: for each family, on rank 0 the plain steps in
-    one process (float32, timed; then with the models in float64, the
-    reference), on both ranks the tensor-parallel steps (float32, timed;
-    the NaN batch; the resume from the gathered tree after step 1; then in
-    float64, held to the reference on rank 0); the readings."""
+def l_rank(mesh, payload):
+    """Phase (l) on one rank, after (k2)'s step over the same two ranks as
+    a dp mesh (one spawn for both: a rank takes seconds to start): for
+    each family, on rank 0 the plain steps in one process (float32, timed;
+    then with the models in float64, the reference), on both ranks the
+    tensor-parallel steps (float32, timed; the NaN batch; the resume from
+    the gathered tree after step 1; then in float64, held to the reference
+    on rank 0); the readings."""
     from ctrlhair_tpu_torch.models.layers import set_compute_dtype
-    from ctrlhair_tpu_torch.parallel.mesh import is_main
+    from ctrlhair_tpu_torch.parallel.mesh import is_main, make_mesh
+    out = {'k2': k2_rank(make_mesh(TP_WORLD, tp=1, device=mesh.device),
+                         payload['k2'])}
+    specs = payload['families']
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     main = is_main(mesh)
-    out = {}
 
     def float64(trainer, state, extra):
         for module in trained_modules(state):
@@ -3092,7 +3221,7 @@ def l_rank(mesh, specs):
                                                         None))
             init_tree = state.to_tree()
             state, plain_m, _, _ = timed_steps(trainer, state, extra,
-                                               batches)
+                                               batches[:TP_HELD_STEPS])
             plain_tree = state.to_tree()
             plain_m = {k: v.cpu() for k, v in plain_m.items()}
             del trainer, state, extra
@@ -3107,11 +3236,10 @@ def l_rank(mesh, specs):
         if not bool(tp_m['finite']):
             raise AssertionError(f'(l) {name}: non-finite tp step')
         lap('tp_steps')
-        rec['digest'] = tree_digest(state.to_tree())
         # the checks below compare this rank's own tensors (its slices):
         # equal slices on every rank are equal gathered trees
         unbroken = local_snapshot(state)
-        lap('tp_gather')
+        lap('snapshot')
         state, m = trainer.train_step(state, nan_batch, *extra)
         rec['nan_bit_identical'] = (
             not bool(m['finite']) and state.step == TP_STEPS + 1
@@ -3136,9 +3264,10 @@ def l_rank(mesh, specs):
         free()
         lap('resume')
         trainer, state, extra = float64(*tp_trainer(family, cfg, dev, mesh))
-        state, tp_m, _, _ = timed_steps(trainer, state, extra, batches,
-                                        mesh)
+        state, tp_m, _, _ = timed_steps(trainer, state, extra,
+                                        batches[:TP_HELD_STEPS], mesh)
         tp_tree = state.to_tree()
+        rec['digest'] = tree_digest(tp_tree)
         del trainer, state, extra
         free()
         if main:
@@ -3174,11 +3303,13 @@ def phase_tensor_parallel(tp_cases: dict, smi: str):
                     for i, b in enumerate(case['batches'][:TP_STEPS])
                     for k, v in b.items()})
             specs[name] = spec
-        per_rank = run_on_ranks(l_rank, TP_WORLD, specs, device='cuda:0',
-                                backend='gloo', tp=TP_SIZE,
+        batch = k2_batch()
+        per_rank = run_on_ranks(l_rank, TP_WORLD,
+                                {'families': specs, 'k2': batch},
+                                device='cuda:0', backend='gloo', tp=TP_SIZE,
                                 deadline_s=900.0, rank_timeout_s=600.0)
+    rec = {'k2': k2_check([r['k2'] for r in per_rank], batch)}
     seconds = time.perf_counter() - t0
-    rec = {}
     for name in specs:
         r0, r1 = (r[name] for r in per_rank)
         held = r0['held']
@@ -3210,7 +3341,7 @@ def phase_tensor_parallel(tp_cases: dict, smi: str):
             'seconds': r0['seconds']}
         log(f'[tensor parallel] l {name} {rec[name]["config"]}, batch '
             f'{rec[name]["batch"]}, make_mesh({TP_WORLD}, tp={TP_SIZE}) on '
-            f'{TP_WORLD} gloo ranks on cuda:0: {TP_STEPS} steps with the '
+            f'{TP_WORLD} gloo ranks on cuda:0: {TP_HELD_STEPS} step with the '
             'models in float64 held to one process '
             f'{held["state_max_scaled_err"]:.3g} at {held["worst_leaf"]} '
             f'(losses {held["loss_max_scaled_err"]:.3g}; bar {TP_BAR}; '
@@ -3235,15 +3366,18 @@ def phase_tensor_parallel(tp_cases: dict, smi: str):
 # card, each step captured once as a CUDA graph and replayed, one host read
 # of the metrics a chunk.  The shape trainer at ShapeConfig() with the
 # soak's recipe, batch 4 gathered on the card from the warp pool of (d) (K2
-# built it), CHUNK_SHAPE steps in chunks of 4 (4, 4, 1); the landmark
+# built it), CHUNK_SHAPE steps in chunks of 2 (2, 2, 1); the landmark
 # trainer at LandmarkNetConfig(), batch 64 gathered on the card from the
-# faces phase (g) rendered on the host, CHUNK_LANDMARK steps in chunks of 8.
+# faces phase (g) rendered on the host, CHUNK_LANDMARK steps in chunks of 4
+# (PR 11 ran 9 in chunks of 4 and 17 in chunks of 8; cut for room).
 # For each: the eager per-step loop and the chunked run from the same state
 # on the same streams (batch of step s from CHUNK_BATCH_SEED + s, draws from
 # step s), a NaN batch inside the second chunk; the two states bit-identical
 # (else their gap held to CHUNK_GAP_BAR of each tensor's scale and stated),
-# one trip; then the chunked run of 0..4 and 4..end from the same state
-# again, bit-identical to the straight chunked run; eager and chunked ms a
+# one trip; then the chunked run of 0..k and k..end from the same state
+# again (k = CHUNK_RESUME_AT, or CHUNK_SHORT_RESUME_AT for a run of 5),
+# bit-identical to the straight chunked run, and each runner's
+# graph captured once; eager and chunked ms a
 # step, capture ms, runtime calls and kernels a step and the idle share of
 # one chunk under torch.profiler, peak memory.  Timed with cuDNN's
 # defaults, held bit for bit with deterministic cuDNN: the defaults'
@@ -3257,10 +3391,25 @@ def phase_tensor_parallel(tp_cases: dict, smi: str):
 # steps under the defaults, which stand apart by their noise alone, and a
 # wrong algorithm, which put the float32 SEAN step 4.4e-3 of a gradient's
 # scale from float64 (FLOAT32_CARD_BAR is 5e-3).
-CHUNK_SHAPE, CHUNK_SHAPE_SIZE = 9, 4
-CHUNK_LANDMARK, CHUNK_LANDMARK_SIZE = 17, 8
+CHUNK_SHAPE, CHUNK_SHAPE_SIZE = 5, 2
+CHUNK_LANDMARK, CHUNK_LANDMARK_SIZE = 9, 4
 CHUNK_BATCH_SEED, CHUNK_NAN_STEP, CHUNK_RESUME_AT = 1000, 5, 4
 CHUNK_GAP_BAR, CHUNK_DEFAULT_BAR = 1e-6, 1e-3
+# The other trainers, each at its published config and batch, from pools on
+# the card gathered by seed as the shape and landmark batches are: the
+# colour/texture trainer at ColorTextureConfig(), batch CT_BATCH, with
+# lambda_rec_img off (the phase JAX's soak chunks) and on from step 0
+# through phase (a)'s frozen seeded SEANConfig() SEAN, the frozen predictors
+# passed as the runner's extra arguments; both predictor trainers, batch
+# PREDICTOR_BATCH; the face parser at BiSeNetConfig(), batch BISENET_BATCH
+# (SGD: no noise exemption); the SEAN trainer at SEANConfig(), batch
+# SEAN_BATCH (spectral norm on, ACE noise off: no draws), whose u vectors
+# after the last step must equal the eager run's bit for bit.  (steps,
+# chunk size); the 5-step cases take their NaN batch and their resume at
+# step 3, inside the second chunk.
+CHUNK_CT, CHUNK_CT_REC = (9, 4), (5, 2)
+CHUNK_PREDICTOR, CHUNK_BISENET, CHUNK_SEAN = (17, 8), (9, 4), (5, 2)
+CHUNK_SHORT_NAN_STEP, CHUNK_SHORT_RESUME_AT = 3, 3
 
 
 def device_shape_pool(root: str) -> dict:
@@ -3315,22 +3464,29 @@ def shape_pool_batches(pool: dict, n: int, nan_seed: int):
     return make_batch
 
 
-def landmark_pool_batches(pool: dict, n: int, nan_seed: int):
-    """make_batch(seed) of the landmark trainer: n samples gathered on the
-    card from the rendered pool by indices a card generator seeded by
-    `seed` draws (as run_landmark gathers them); a NaN in one pixel of the
-    batch of nan_seed."""
-    n_pool = pool['image'].shape[0]
+def pool_batches(pool: dict, n: int, nan_seed: int, nan_key: str,
+                 nan_index: tuple):
+    """make_batch(seed): n rows gathered on the card from a pool of rows
+    by indices a card generator seeded by `seed` draws (as run_landmark
+    gathers its samples); a NaN at pool[nan_key][nan_index] in the batch
+    of nan_seed."""
+    n_pool = pool[nan_key].shape[0]
 
     def make_batch(seed):
         gen = torch.Generator('cuda').manual_seed(seed)
         idx = torch.randint(0, n_pool, (n,), generator=gen, device='cuda')
         batch = {k: v[idx] for k, v in pool.items()}
         if seed == nan_seed:
-            batch['image'][5, 3, 4, 0] = float('nan')
+            batch[nan_key][nan_index] = float('nan')
         return batch
 
     return make_batch
+
+
+def landmark_pool_batches(pool: dict, n: int, nan_seed: int):
+    """make_batch(seed) of the landmark trainer from the rendered pool; a
+    NaN in one pixel of the batch of nan_seed."""
+    return pool_batches(pool, n, nan_seed, 'image', (5, 3, 4, 0))
 
 
 def profile_chunk(fn, steps: int, step_ms: float) -> dict:
@@ -3377,10 +3533,13 @@ def state_gap(got: list, ref: list) -> tuple:
 
 
 def opt_snapshot(state) -> list:
-    """Copies of each trained part's parameters, buffers and Adam moments:
-    [(params, buffers, mu, nu)] in the state's part order."""
+    """Copies of each trained part's parameters, buffers and optimiser
+    state: [(params, buffers, Adam's mu or SGD's trace, Adam's nu or
+    nothing)] in the state's part order."""
     return [tuple([t.detach().clone() for t in ts] for ts in (
-        m.params(), m.module.buffers(), m.mu.values(), m.nu.values()))
+        m.params(), m.module.buffers(),
+        *((m.mu.values(), m.nu.values()) if hasattr(m, 'mu')
+          else (m.trace.values(), ()))))
         for m in (state.parts().values() if hasattr(state, 'parts')
                   else [state.model])]
 
@@ -3392,7 +3551,9 @@ def opt_gap(got: list, ref: list, init: list, lrs: list) -> float:
     as held_to_cpu measures a step: a parameter entry whose gradient (mu)
     the two do not reproduce to 1% is rounding noise, which Adam turns
     into a move of about lr of either sign; such entries must have moved at
-    most 2 lr on both sides and are left out of the parameters' gap."""
+    most 2 lr on both sides and are left out of the parameters' gap.  An
+    lr of None (SGD, whose step is linear in the gradient) exempts
+    nothing."""
     worst = 0.0
 
     def scaled(a, b):
@@ -3402,6 +3563,9 @@ def opt_gap(got: list, ref: list, init: list, lrs: list) -> float:
     for (gp, gb, gm, gn), (rp, rb, rm, rn), (ip, _, _, _), lr in zip(
             got, ref, init, lrs):
         for a, b, a0, mg, mr in zip(gp, rp, ip, gm, rm):
+            if lr is None:
+                worst = max(worst, scaled(a, b))
+                continue
             noisy = (mg - mr).abs() > 1e-2 * mr.abs()
             for side in (a, b):
                 if bool(((side - a0).abs() > 2 * lr)[noisy].any()):
@@ -3414,16 +3578,26 @@ def opt_gap(got: list, ref: list, init: list, lrs: list) -> float:
 
 
 def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
-                 lrs: list, steps: int, chunk: int, smi: str) -> dict:
+                 lrs: list, steps: int, chunk: int, smi: str, *,
+                 step_fn=None, extra=(), nan_step=CHUNK_NAN_STEP,
+                 resume_at=CHUNK_RESUME_AT, same=None) -> dict:
     """The eager loop and the chunked runs of one trainer, as the comment
     above says: timed with cuDNN's defaults, the graph captured under them
     held after its first step to the eager first step (the gap of two
     eager first steps beside it; the gap after all the steps stated),
     then held bit for bit with deterministic cuDNN, through a graph
     captured under it.  `lrs`: the learning rate of each trained part, in
-    the state's part order."""
+    the state's part order (None for SGD).  `step_fn(state, batch,
+    [draws], *extra)`: the step the runner takes (the trainer's
+    train_step); `extra`: its trailing arguments.  The batch of
+    CHUNK_BATCH_SEED + nan_step holds a NaN; the resume starts at
+    resume_at.  `same(chunked state, eager state)`: a check of the
+    deterministic runs' end states beside the bit identity, whose result
+    the record keeps."""
     from ctrlhair_tpu_torch.training.chunked import ChunkRunner
     bseed = CHUNK_BATCH_SEED
+    step_fn = step_fn or trainer.train_step
+    t_case = time.perf_counter()
 
     def restart(state):
         with torch.no_grad():
@@ -3439,8 +3613,8 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
         for s in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = trainer.train_step(state, make_batch(bseed + s), *(
-                () if make_draws is None else (make_draws(s),)))
+            state, m = step_fn(state, make_batch(bseed + s), *(
+                () if make_draws is None else (make_draws(s),)), *extra)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             finite.append(bool(m['finite']))
@@ -3450,9 +3624,14 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
         return times, finite
 
     def chunked(state, runner, **kw):
-        return runner.run(state, 0, steps, chunk_size=chunk, **kw)
+        return runner.run(state, 0, steps, chunk_size=chunk,
+                          extra_args=extra, **kw)
 
-    want_finite = [s != CHUNK_NAN_STEP for s in range(steps)]
+    def runner_of():
+        return ChunkRunner(step_fn, make_batch, make_draws=make_draws,
+                           batch_seed=bseed)
+
+    want_finite = [s != nan_step for s in range(steps)]
     eager_state = make_state()
     init = [t.clone() for t in eager_state.tensors()]
     init_opt = opt_snapshot(eager_state)
@@ -3472,12 +3651,12 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
     eager(restart(eager_state), 1, again)
     eager_twice_gap = opt_gap(again[0], first[0], init_opt, lrs)
     del again
-    eager_prof = profile_chunk(lambda: trainer.train_step(
+    eager_prof = profile_chunk(lambda: step_fn(
         eager_state, make_batch(bseed), *(
-            () if make_draws is None else (make_draws(0),))), 1, eager_med)
+            () if make_draws is None else (make_draws(0),)), *extra), 1,
+        eager_med)
     state = restart(make_state())
-    runner = ChunkRunner(trainer.train_step, make_batch,
-                         make_draws=make_draws, batch_seed=bseed)
+    runner = runner_of()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -3496,13 +3675,15 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
         raise AssertionError(f'{name}: trips {trips}, finite flags '
                              f'{[r["finite"] for r in rows]}, eager '
                              f'{finite}; one NaN batch at step '
-                             f'{CHUNK_NAN_STEP} expected')
+                             f'{nan_step} expected')
     capture_ms = runner.capture_ms[0]
     prof = profile_chunk(
         lambda: runner.run(state, state.step, state.step + chunk,
-                           chunk_size=chunk), chunk, chunked_med)
+                           chunk_size=chunk, extra_args=extra), chunk,
+        chunked_med)
     # the graph captured under the defaults, after its first step
-    state, rows, _ = runner.run(restart(state), 0, 1, chunk_size=chunk)
+    state, rows, _ = runner.run(restart(state), 0, 1, chunk_size=chunk,
+                                extra_args=extra)
     graph_gap = opt_gap(opt_snapshot(state), first[0], init_opt, lrs)
     loss_gap = max(abs(rows[0][k] - v) / max(1.0, abs(v))
                    for k, v in first[1].items())
@@ -3513,6 +3694,7 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
             f'defaults stands {graph_gap:.3g} from the eager step (losses '
             f'{loss_gap:.3g}; bar {CHUNK_DEFAULT_BAR}; two eager steps '
             f'{eager_twice_gap:.3g}; {runner.captures} captures)')
+    captures = [runner.captures]
     del runner, eager_default, first, init_opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -3521,31 +3703,41 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
     def held():
         """The eager loop and a chunked run from a graph captured with
         deterministic cuDNN: bit-identical (else within CHUNK_GAP_BAR);
-        the NaN step one trip; 0..CHUNK_RESUME_AT then on to the end
-        through the same graph, bit-identical to the straight run."""
+        the NaN step one trip; 0..resume_at then on to the end through
+        the same graph, bit-identical to the straight run."""
         eager(restart(eager_state))
-        runner = ChunkRunner(trainer.train_step, make_batch,
-                             make_draws=make_draws, batch_seed=bseed)
+        runner = runner_of()
         st, _, trips = chunked(restart(state), runner)
         identical, gap = state_gap(st.tensors(), eager_state.tensors())
         if st.step != steps or trips != 1 or not gap <= CHUNK_GAP_BAR:
+            names = tensor_names(st)
+            apart = [names[i] for i, (a, b) in enumerate(zip(
+                st.tensors(), eager_state.tensors())) if not torch.equal(a, b)]
+            free, total = torch.cuda.mem_get_info()
             raise AssertionError(
                 f'{name}: the chunked state at step {st.step} ({trips} '
                 f'trips) stands {gap:.3g} from the eager one (bar '
-                f'{CHUNK_GAP_BAR}, deterministic cuDNN)')
+                f'{CHUNK_GAP_BAR}, deterministic cuDNN); {len(apart)} '
+                f'tensors differ, the first {apart[:8]}; card memory free '
+                f'{free} of {total} B, reserved '
+                f'{torch.cuda.memory_reserved()} B, allocated at most '
+                f'{torch.cuda.max_memory_allocated()} B')
+        also = None if same is None else same(st, eager_state)
         straight = [t.clone() for t in st.tensors()]
-        st, _, _ = runner.run(restart(st), 0, CHUNK_RESUME_AT,
-                              chunk_size=chunk)
-        st, _, _ = runner.run(st, CHUNK_RESUME_AT, steps, chunk_size=chunk)
+        st, _, _ = runner.run(restart(st), 0, resume_at, chunk_size=chunk,
+                              extra_args=extra)
+        st, _, _ = runner.run(st, resume_at, steps, chunk_size=chunk,
+                              extra_args=extra)
         resumed, _ = state_gap(st.tensors(), straight)
+        captures.append(runner.captures)
         if not resumed or runner.captures != 1:
             raise AssertionError(f'{name}: the run resumed at step '
-                                 f'{CHUNK_RESUME_AT} differs from the '
+                                 f'{resume_at} differs from the '
                                  f'straight one ({runner.captures} '
                                  'captures)')
-        return identical, gap, resumed
+        return identical, gap, resumed, also
 
-    identical, gap, resumed = held()
+    identical, gap, resumed, also = held()
     rec = {'steps': steps, 'chunk_size': chunk, 'chunk_sizes': sizes,
            'eager_ms': eager_ms, 'eager_median_ms': eager_med,
            'chunk_ms': chunk_ms, 'chunked_median_ms_per_step': chunked_med,
@@ -3562,7 +3754,10 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
                               'bar': CHUNK_DEFAULT_BAR},
                'all_steps_graph_vs_eager': default_gap},
            'bit_identical': identical, 'max_scaled_gap': gap,
-           'finite_trips': trips, 'resume_bit_identical': resumed}
+           'finite_trips': trips, 'nan_step': nan_step,
+           'resume_at': resume_at, 'resume_bit_identical': resumed,
+           'captures': captures, 'also': also,
+           'seconds': time.perf_counter() - t_case}
     log(f'[chunked] {name}: {steps} steps in chunks of {chunk} '
         f'({sizes}); eager {eager_med:.3f} ms a step, chunked '
         f'{chunked_med:.3f} ms a step (chunks '
@@ -3583,8 +3778,9 @@ def chunked_case(name: str, trainer, make_state, make_batch, make_draws,
         f'after {steps} steps the chunked run {default_gap:.3g} from the '
         f'eager one; deterministic: '
         f'bit-identical {identical} (worst {gap:.3g}), NaN step '
-        f'{CHUNK_NAN_STEP} one trip, resume at {CHUNK_RESUME_AT} '
-        f'bit-identical {resumed} ({smi})')
+        f'{nan_step} one trip, resume at {resume_at} bit-identical '
+        f'{resumed}' + ('' if also is None else f', {also}')
+        + f'; captures {captures}; {rec["seconds"]:.1f} s ({smi})')
     return rec
 
 
@@ -3607,9 +3803,10 @@ def phase_chunked(cases: dict, smi: str):
         f'shape ShapeConfig() soak recipe, batch {SHAPE_BATCH}', trainer,
         lambda: trainer.init_state(SEED),
         shape_pool_batches(cases['shape_pool'], SHAPE_BATCH,
-                           CHUNK_BATCH_SEED + CHUNK_NAN_STEP),
+                           CHUNK_BATCH_SEED + CHUNK_SHORT_NAN_STEP),
         lambda s: trainer.draws(s, SHAPE_BATCH),
-        [cfg.lr_g, cfg.lr_d, cfg.lr_dz], CHUNK_SHAPE, CHUNK_SHAPE_SIZE, smi)
+        [cfg.lr_g, cfg.lr_d, cfg.lr_dz], CHUNK_SHAPE, CHUNK_SHAPE_SIZE, smi,
+        nan_step=CHUNK_SHORT_NAN_STEP, resume_at=CHUNK_SHORT_RESUME_AT)
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -3621,8 +3818,152 @@ def phase_chunked(cases: dict, smi: str):
         landmark_pool_batches(cases['landmark_pool'], LANDMARK_BATCH,
                               CHUNK_BATCH_SEED + CHUNK_NAN_STEP),
         None, [lcfg.lr], CHUNK_LANDMARK, CHUNK_LANDMARK_SIZE, smi)
+    del ltrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(chunked_other_trainers(smi))
     rec['seconds'] = time.perf_counter() - t0
     return read_launches('chunked', 0, 0), rec
+
+
+def ct_chunk_step(trainer):
+    """The colour/texture step in the runner's argument order (state,
+    batch, draws, predictors), as JAX's soak wraps its own."""
+    @functools.wraps(trainer.train_step)
+    def step(state, batch, draws, predictors):
+        return trainer.train_step(state, batch, predictors, draws)
+    return step
+
+
+def sean_u_bit_identical(chunked, eager) -> dict:
+    """The SEAN trainer's u vectors after the chunked and the eager run,
+    bit for bit."""
+    for key in ('sn_u', 'dis_sn_u'):
+        a, b = getattr(chunked, key), getattr(eager, key)
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f'SEAN chunked: {key} differs from the '
+                                 'eager run\'s')
+    return {'u_vectors_bit_identical': len(chunked.sn_u)
+            + len(chunked.dis_sn_u)}
+
+
+def chunked_other_trainers(smi: str) -> dict:
+    """Phase (m)'s colour/texture, predictor, face-parser and SEAN cases,
+    as the comment above says, each freed before the next."""
+    import dataclasses
+    from ctrlhair_tpu_torch.config import (
+        BiSeNetConfig, ColorTextureConfig, SEANConfig,
+        curliness_predictor_config, rgb_predictor_config)
+    from ctrlhair_tpu_torch.models.layers import init_parameters_
+    from ctrlhair_tpu_torch.models.sean import SEAN
+    from ctrlhair_tpu_torch.training import sean_trainer
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    from ctrlhair_tpu_torch.training.color_texture_trainer import (
+        ColorTextureTrainer, synthetic_batch as ct_synthetic)
+    from ctrlhair_tpu_torch.training.predictor_trainer import (
+        PredictorTrainer)
+    rec = {}
+    nan_seed = CHUNK_BATCH_SEED + CHUNK_NAN_STEP
+    short_nan_seed = CHUNK_BATCH_SEED + CHUNK_SHORT_NAN_STEP
+    short = {'nan_step': CHUNK_SHORT_NAN_STEP,
+             'resume_at': CHUNK_SHORT_RESUME_AT}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # colour/texture, lambda_rec_img off and on
+    scfg = SEANConfig()
+    with torch.device('cuda'):
+        sean = SEAN(scfg)
+    init_parameters_(sean, torch.Generator('cuda').manual_seed(SEED))
+    for rec_img in (False, True):
+        cfg = ColorTextureConfig()
+        if rec_img:
+            cfg = dataclasses.replace(cfg, lambda_rec_img={0: 1000.0})
+        trainer = ColorTextureTrainer(cfg, sean=sean if rec_img else None,
+                                      rec_img_subset=4, device='cuda',
+                                      seed=SEED)
+        _, preds = trainer.init_state(SEED)
+        pool = ct_synthetic(torch.Generator().manual_seed(SEED + 7), cfg,
+                            2 * CT_BATCH, 'cuda')
+        if rec_img:
+            pool.update(ct_rec_batch(cfg, scfg, torch.Generator(
+                'cuda').manual_seed(SEED + 7), 2 * CT_BATCH))
+        steps, chunk = CHUNK_CT_REC if rec_img else CHUNK_CT
+        key = 'color_texture_rec_img' if rec_img else 'color_texture'
+        rec[key] = chunked_case(
+            f'colour/texture ColorTextureConfig(), lambda_rec_img '
+            f'{"on (frozen SEANConfig() SEAN)" if rec_img else "off"}, '
+            f'batch {CT_BATCH}', trainer,
+            lambda: trainer.init_state(SEED)[0],
+            pool_batches(pool, CT_BATCH,
+                         short_nan_seed if rec_img else nan_seed, 'code',
+                         (3, 7)),
+            lambda s: trainer.draws(s, CT_BATCH),
+            [cfg.lr_g, cfg.lr_d, cfg.lr_g], steps, chunk, smi,
+            step_fn=ct_chunk_step(trainer), extra=(preds,),
+            **(short if rec_img else {}))
+        del trainer, preds, pool
+        free()
+    del sean
+    free()
+
+    # the two predictors
+    for which, cfg in (('rgb', rgb_predictor_config()),
+                       ('curliness', curliness_predictor_config())):
+        trainer = PredictorTrainer(cfg, device='cuda', seed=SEED)
+        g = torch.Generator().manual_seed(SEED + 8)
+        code = torch.randn((4 * PREDICTOR_BATCH, cfg.style_dim), generator=g)
+        pool = {'code': code}
+        if which == 'curliness':
+            pool['curliness_label'] = torch.where(
+                code[:, :1] + code[:, 1:2] > 0, 1.0, -1.0)
+        else:
+            pool['rgb_mean'] = code[:, :3] * 40 + 128
+            pool['pca_std'] = code[:, 3:4].abs() * 30 + 20
+        rec[which] = chunked_case(
+            f'{which} predictor ({cfg.name}), batch {PREDICTOR_BATCH}',
+            trainer, lambda: trainer.init_state(SEED),
+            pool_batches(to_device(pool, 'cuda'), PREDICTOR_BATCH, nan_seed,
+                         'code', (5, 9)),
+            lambda s: trainer.draws(s, PREDICTOR_BATCH), [cfg.lr],
+            *CHUNK_PREDICTOR, smi)
+        del trainer, pool
+        free()
+
+    # the face parser
+    cfg = BiSeNetConfig()
+    trainer = BiSeNetTrainer(cfg, device='cuda')
+    rng = np.random.default_rng(SEED + 9)
+    s = cfg.input_size
+    pool = {'image': torch.from_numpy(rng.standard_normal(
+                (2 * BISENET_BATCH, s, s, 3)).astype(np.float32)).cuda(),
+            'label': torch.from_numpy(rng.integers(
+                0, 19, (2 * BISENET_BATCH, s, s)).astype(np.int32)).cuda()}
+    rec['bisenet'] = chunked_case(
+        f'face parser BiSeNetConfig(), batch {BISENET_BATCH}', trainer,
+        lambda: trainer.init_state(SEED),
+        pool_batches(pool, BISENET_BATCH, nan_seed, 'image', (2, 7, 9, 1)),
+        None, [None], *CHUNK_BISENET, smi)
+    del trainer, pool
+    free()
+
+    # SEAN
+    cfg = SEANConfig()
+    trainer = sean_trainer.SEANTrainer(cfg, device='cuda', seed=SEED)
+    pool = sean_trainer.synthetic_batch(np.random.default_rng(SEED + 10),
+                                        cfg, 2 * SEAN_BATCH, 'cuda')
+    rec['sean'] = chunked_case(
+        f'sean SEANConfig(), batch {SEAN_BATCH}', trainer,
+        lambda: trainer.init_state(SEED),
+        pool_batches(pool, SEAN_BATCH, short_nan_seed, 'image',
+                     (1, 3, 4, 0)),
+        None, [1e-4, 4e-4], *CHUNK_SEAN, smi, same=sean_u_bit_identical,
+        **short)
+    del trainer, pool
+    free()
+    return rec
 
 
 def phase_training(smi: str, dp_cases: dict):
@@ -3667,6 +4008,9 @@ def phase_training(smi: str, dp_cases: dict):
     rec['seconds'] = seconds
     log('[time] training phases, seconds: '
         + ', '.join(f'{k} {v:.1f}' for k, v in seconds.items()))
+    log('[time] training checks by part, seconds: ' + ', '.join(
+        f'{k} {v:.1f}' for k, v in sorted(LAPS.items(),
+                                          key=lambda kv: -kv[1])))
     return read_launches('training', 0, POOL_WARPS), rec
 
 
@@ -3870,9 +4214,6 @@ def main() -> int:
         t_phase.values())
     log('[time] phases, seconds: '
         + ', '.join(f'{k} {v:.1f}' for k, v in t_phase.items()))
-    log('[time] training checks by part, seconds: ' + ', '.join(
-        f'{k} {v:.1f}' for k, v in sorted(LAPS.items(),
-                                          key=lambda kv: -kv[1])))
     cg_entry['case']['ptxas'] = {k: v for k, v in ptxas.items()
                                  if k.startswith('masked_cg')}
     raster_entry['case']['ptxas'] = ptxas['raster_uv']

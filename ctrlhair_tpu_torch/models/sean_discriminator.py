@@ -10,6 +10,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Mapping
 
 import numpy as np
@@ -119,12 +120,18 @@ _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _imagenet_stats(device: torch.device, dtype: torch.dtype):
+    """(mean, std) on a device, made once (a CUDA graph captured over a
+    training step cannot copy them from pageable host memory)."""
+    return (torch.tensor(_IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(_IMAGENET_STD, dtype=dtype, device=device))
+
+
 def vgg_preprocess(img_m11: torch.Tensor) -> torch.Tensor:
     """[-1,1] NHWC -> ImageNet-normalised NCHW input of VGG19Features."""
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=img_m11.dtype,
-                        device=img_m11.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=img_m11.dtype,
-                       device=img_m11.device)
+    mean, std = _imagenet_stats(img_m11.device, img_m11.dtype)
     return (((img_m11 + 1.0) / 2.0 - mean) / std).permute(0, 3, 1, 2)
 
 

@@ -5,9 +5,15 @@
 # nearest resizes pick the same pixels and bilinear resizes apply the same
 # weights.  `resize_nearest` and `resize_bilinear` work on the two trailing
 # dims ([..., H, W], which covers NCHW); the *_nhwc variants keep the JAX
-# package's channels-last layout at the public boundary.
+# package's channels-last layout at the public boundary.  The index and
+# weight tensors are made on a device once per size and kept, so a resize
+# copies nothing from the host after its first call (a CUDA graph captured
+# over a training step, training/chunked.py, cannot copy from pageable host
+# memory).
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,14 +27,24 @@ def _src_index_nearest(dst_size: int, src_size: int) -> np.ndarray:
     return np.clip(idx.astype(np.int64), 0, src_size - 1)
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _nearest_index(dst_size: int, src_size: int,
+                   device: torch.device) -> torch.Tensor:
+    # kept tensors are made outside inference mode, so a training step can
+    # use one that an inference call made first
+    return torch.as_tensor(_src_index_nearest(dst_size, src_size),
+                           device=device)
+
+
 def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
     """Nearest resize of the two trailing dims of [..., H, W]."""
     h, w = out_hw
     h_in, w_in = img.shape[-2], img.shape[-1]
     if h_in % h == 0 and w_in % w == 0 and h <= h_in and w <= w_in:
         return img[..., ::h_in // h, ::w_in // w]
-    iy = torch.as_tensor(_src_index_nearest(h, h_in), device=img.device)
-    ix = torch.as_tensor(_src_index_nearest(w, w_in), device=img.device)
+    iy = _nearest_index(h, h_in, img.device)
+    ix = _nearest_index(w, w_in, img.device)
     return img.index_select(-2, iy).index_select(-1, ix)
 
 
@@ -58,6 +74,15 @@ def _linear_matrix(dst_size: int, src_size: int,
     return mat
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _linear_weights(dst_size: int, src_size: int, align_corners: bool,
+                    device: torch.device, dtype: torch.dtype
+                    ) -> torch.Tensor:
+    return torch.as_tensor(_linear_matrix(dst_size, src_size, align_corners),
+                           device=device, dtype=dtype)
+
+
 def resize_bilinear(img: torch.Tensor, out_hw,
                     align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of the two trailing dims of [..., H, W].
@@ -69,10 +94,8 @@ def resize_bilinear(img: torch.Tensor, out_hw,
     h, w = out_hw
     dtype = img.dtype if img.is_floating_point() else torch.float32
     x = img.to(dtype)
-    wy = torch.as_tensor(_linear_matrix(h, x.shape[-2], align_corners),
-                         device=x.device, dtype=dtype)
-    wx = torch.as_tensor(_linear_matrix(w, x.shape[-1], align_corners),
-                         device=x.device, dtype=dtype)
+    wy = _linear_weights(h, x.shape[-2], align_corners, x.device, dtype)
+    wx = _linear_weights(w, x.shape[-1], align_corners, x.device, dtype)
     x = torch.matmul(wy, x)                    # [..., h, W]
     return torch.matmul(x, wx.transpose(0, 1))  # [..., h, w]
 

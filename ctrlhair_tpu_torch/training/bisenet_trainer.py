@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -32,6 +33,13 @@ from ctrlhair_tpu_torch.training.train_state import (
 class BiSeNetTrainState(PredictorTrainState):
     """step, the model (parameters and the SGD trace) and its running
     statistics; {'step', 'model', 'stats'} in a checkpoint, as JAX's."""
+
+
+@functools.lru_cache(maxsize=None)
+def _min_loss(thresh: float) -> float:
+    """OHEM's loss threshold -log(thresh), taken in float32 as JAX takes
+    it, once a threshold (no host work in the step)."""
+    return float(-torch.log(torch.tensor(thresh, dtype=torch.float32)))
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -53,9 +61,7 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     per_pix = torch.where(valid, per_pix, torch.zeros_like(per_pix))
     k = max(int(h * w * keep_fraction), 1)
     topk = torch.topk(per_pix, k, dim=1).values
-    # the threshold in float32, as JAX takes its log
-    min_loss = float(-torch.log(torch.tensor(thresh, dtype=torch.float32)))
-    over = per_pix > min_loss
+    over = per_pix > _min_loss(thresh)
     hard = torch.where(over, per_pix, torch.zeros_like(per_pix))
     n_hard = torch.sum(over, dim=1)
     loss_thresh = torch.sum(hard, dim=1) / torch.clamp_min(n_hard, 1)

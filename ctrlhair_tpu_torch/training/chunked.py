@@ -1,16 +1,18 @@
 # Chunked training: K optimizer steps per chunk with one host sync.
 #
-# Port of ctrlhair_tpu/training/chunked.py.  There, K steps run as one
-# jitted lax.scan, one dispatch and one host sync per chunk.  Here a step is
-# a trainer's train_step, which already runs on the card without a host
-# read (the finite gate is a torch.where); what a step costs beyond its
-# kernels is the host issuing thousands of launches.  So on the card the
-# step is captured once as a CUDA graph and replayed K times a chunk: the
-# host copies each step's batch and draws into the graph's input slots,
-# replays the graph, and copies the step's metrics into a device buffer of
-# K rows, which it reads once when the chunk ends.  On the CPU (the tests)
-# the steps run eagerly, and their metrics are stacked and read once a
-# chunk as well.
+# Port of ctrlhair_tpu/training/chunked.py, which wraps any trainer's step
+# (JAX's soak runs SEAN, the face parser, both predictors, colour/texture
+# and shape through it).  There, K steps run as one jitted lax.scan, one
+# dispatch and one host sync per chunk.  Here a step is a trainer's
+# train_step, which already runs on the card without a host read (the
+# finite gate is a torch.where); what a step costs beyond its kernels is
+# the host issuing thousands of launches.  So on the card the step is
+# captured once as a CUDA graph and replayed K times a chunk: the host
+# copies each step's batch and draws into the graph's input slots, replays
+# the graph, and copies the step's metrics into a device buffer of K rows,
+# which it reads once when the chunk ends.  On the CPU (the tests) the
+# steps run eagerly, and their metrics are stacked and read once a chunk as
+# well.
 #
 # The contract is JAX's: the batch of step s comes only from
 # make_batch(batch_seed + s) and its draws only from make_draws(step_seed +
@@ -21,24 +23,36 @@
 # may stop the run early.
 #
 # The graph reads and writes the state's own tensors, so a step must update
-# every tensor of the state in place (training/train_state.py), and the
-# state must expose them (tensors()).  The step index is a device tensor:
-# during capture and replay state.step is that tensor, which the step's
-# `state.step += 1` advances in place and its loss schedule reads on the
-# device; the host sets state.step back to an int after each chunk.  The
-# eager warm-up steps that capture needs advance the state, so the state is
+# every tensor of the state in place (training/train_state.py; the SEAN
+# trainer's power-iteration vectors too), and the state must expose them
+# (tensors()).  The step index is a device tensor: during capture and
+# replay state.step is that tensor, which the step's `state.step += 1`
+# advances in place and its loss schedule reads on the device; the host
+# sets state.step back to an int after each chunk.  A step that would draw
+# for itself from state.step raises there (predictor_trainer.
+# step_generator), so a step that draws takes make_draws.  The eager
+# warm-up steps that capture needs advance the state, so the state is
 # copied before them and restored in place after.  The runner holds one
 # graph, which serves every chunk, the remainder included; it is captured
 # anew when the structure or shapes of the batch and draws, or the tensors
-# of the state or of the extra arguments, change.  A capture or replay that
-# fails raises: there is no fall-back to eager steps.  A mesh is refused:
-# capturing the collectives of gloo is not possible.  The runner refuses a
-# step whose trainer has a mesh (found through functools.partial and
-# functools.wraps), and on the card any process group of more than one
-# rank, which catches a mesh step wrapped otherwise.
+# of the state or of the extra arguments (a module's parameters and
+# buffers among them), change.  A capture or replay that fails raises:
+# there is no fall-back to eager steps.
+#
+# A trainer over a mesh (parallel/mesh.py) runs too.  On the CPU its chunk
+# takes the steps eagerly, collectives and all, as the per-step loop does.
+# On the card the graph captures the step's NCCL collectives (the gradient
+# buckets, the global sums, synced batch norm, the tp copies and gathers);
+# the warm-up steps have created the communicator before the capture, and
+# the buckets the host builds each step are allocated from the graph's
+# pool.  Every rank must run the same chunks.  gloo's collectives run on
+# the host and cannot be captured: on the card a trainer whose mesh is
+# over gloo is refused (the mesh found through functools.partial and
+# functools.wraps to the bound method's trainer).
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -79,6 +93,42 @@ def _mesh_of(step_fn):
     return None
 
 
+def _over_gloo(mesh) -> bool:
+    """Whether a mesh's dp or tp group runs over gloo."""
+    if mesh is None:
+        return False
+    groups = [mesh.group] + ([mesh.tp_group] if mesh.tp > 1 else [])
+    return any(torch.distributed.get_backend(g) == 'gloo' for g in groups)
+
+
+def _module_tensors(tree) -> list:
+    """The parameters and buffers of every module among a tree's leaves
+    (the frozen predictors the colour/texture step takes as arguments)."""
+    return [t for v in tree_flatten(tree)[0] if isinstance(v, torch.nn.Module)
+            for t in (*v.parameters(), *v.buffers())]
+
+
+def _fresh_memory(device) -> None:
+    """Called before the warm-up, before the capture and after it.  cuBLAS
+    keeps a workspace per stream; one made during a capture lies in that
+    graph's private pool, and once the graph is freed (a recapture, a new
+    runner) the next capture or eager step would still write to it while
+    the allocator hands the same memory to other tensors: the workspaces
+    are dropped, as torch.compile's CUDA graphs drop them.  A SEANConfig()
+    step captured after another graph of it had been freed stood 0.0183
+    from its eager loop with deterministic cuDNN until they were.  Garbage
+    is collected too: an earlier step's autograd graph that is still alive
+    keeps its parameters' gradient accumulators and the stream they were
+    made on, which the capture's backward must not wait on (over an NCCL
+    mesh, a state that had just taken eager steps through the group was
+    seen to fail to capture all the same: start such a run from a state
+    that has not)."""
+    torch.cuda.synchronize(device)
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _metric_row(metrics: Dict[str, torch.Tensor], keys) -> torch.Tensor:
     """The step's metrics as one float64 vector in `keys` order (float64
     holds a float32 or float64 metric and a bool flag exactly)."""
@@ -112,15 +162,23 @@ class ChunkRunner:
         them.
     make_draws(seed) -> the draws of the step whose seed is step_seed +
         step (e.g. lambda s: trainer.draws(s, n)); None for a step that
-        takes none.
+        takes none (the landmark step, the face parser's, and SEAN's
+        without ACE noise).
+    run(extra_args=...) -> the step's trailing arguments, as JAX's soak
+        passes the colour/texture step its frozen predictors.
+
+    On the card the graph reads every tensor the step reads at the address
+    it had when the graph was captured.  The runner tracks the state's
+    tensors and the extra arguments' (captured anew when they change);
+    what the step reads from elsewhere, such as the frozen SEAN on the
+    colour/texture trainer that renders lambda_rec_img, it does not track:
+    that must stay the same tensors, and frozen, for the runner's life
+    (values written into them in place are read by the next replay).
     """
 
     def __init__(self, step_fn: Callable, make_batch: Callable, *,
                  make_draws: Optional[Callable] = None, batch_seed: int = 0,
                  step_seed: int = 0):
-        if _mesh_of(step_fn) is not None:
-            raise ValueError('ChunkRunner does not run a trainer over a '
-                             'mesh: the collectives cannot be captured')
         self.step_fn, self.make_batch = step_fn, make_batch
         self.make_draws = make_draws
         self.batch_seed, self.step_seed = batch_seed, step_seed
@@ -165,6 +223,7 @@ class ChunkRunner:
         host_step = state.step
         saved = [t.clone() for t in tensors]
         t0 = time.perf_counter()
+        _fresh_memory(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         try:
@@ -181,6 +240,8 @@ class ChunkRunner:
                     t.copy_(s)
             del saved
         keys = list(metrics)
+        del metrics
+        _fresh_memory(device)
         graph = torch.cuda.CUDAGraph()
         state.step = self._step_t
         try:
@@ -192,7 +253,7 @@ class ChunkRunner:
                                    'advance it in place (state.step += 1)')
         finally:
             state.step = host_step
-        torch.cuda.synchronize(device)
+        _fresh_memory(device)
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         return _Graph(graph, slots, row, keys, key)
 
@@ -204,6 +265,7 @@ class ChunkRunner:
         inputs = self._inputs(step)
         leaves, sig = _flatten(inputs)
         extra_t, extra_sig = _flatten(tuple(extra))
+        extra_t += _module_tensors(tuple(extra))
         key = (sig, extra_sig, [t.data_ptr() for t in tensors + extra_t])
         if self._graph is None or self._graph.key != key:
             device = tensors[0].device
@@ -246,11 +308,10 @@ class ChunkRunner:
             raise ValueError(f'the state is at step {state.step}, the run '
                              f'starts at {start}')
         on_card = state.tensors()[0].device.type == 'cuda'
-        if on_card and torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise ValueError('ChunkRunner does not capture a step in a '
-                             'process group of more than one rank')
+        if on_card and _over_gloo(_mesh_of(self.step_fn)):
+            raise ValueError('ChunkRunner does not capture a step over a '
+                             'gloo mesh: gloo\'s collectives run on the '
+                             'host; use NCCL on the card')
         rows: List[Dict[str, float]] = []
         finite_trips = 0
         keys = None

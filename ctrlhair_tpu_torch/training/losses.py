@@ -172,8 +172,9 @@ class LossSchedule:
         values, bounds = self._tables(name, step)
         if bounds is None:
             return values
-        return values[torch.searchsorted(bounds, step.reshape(1),
-                                         right=True)[0]]
+        # a 1-element index: a 0-d tensor index would be read on the host
+        return values.index_select(0, torch.searchsorted(
+            bounds, step.reshape(1), right=True)).reshape(())
 
     def _tables(self, name: str, step: torch.Tensor):
         """(values, bounds) of one weight on step's device: a 0-d value and

@@ -43,7 +43,13 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
-    """The host generator of one training step's draws."""
+    """The host generator of one training step's draws.  A step whose index
+    is a device tensor (a step captured by training/chunked.py) cannot draw
+    for itself: its draws come from the runner's make_draws."""
+    if isinstance(step, torch.Tensor):
+        raise TypeError('a step whose index is a tensor (a captured step) '
+                        'cannot draw for itself: pass its draws, e.g. '
+                        'through ChunkRunner(make_draws=...)')
     return torch.Generator().manual_seed(step_seed(seed, step))
 
 

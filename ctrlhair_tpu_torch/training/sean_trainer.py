@@ -18,9 +18,11 @@
 # the generator) and `dis_sn_u` (every discriminator conv) are state, the
 # models run under the normalised weights, the gradient flows through the
 # normalisation, and each u advances by one iteration from the pre-update
-# weights on every step, finite or not (JAX's rule).  JAX evaluates D on
-# the fake in both halves at the same weights; here one forward on the fake
-# and one on the real serve both halves.
+# weights on every step, finite or not (JAX's rule), written into the
+# state's own u tensors (as every tensor of a state is, so that a CUDA graph
+# captured over the step, training/chunked.py, reads and advances them).
+# JAX evaluates D on the fake in both halves at the same weights; here one
+# forward on the fake and one on the real serve both halves.
 #
 # The VGG19 weights are random from the seed unless given (`vgg_state`, a
 # VGG19Features state dict; run_sean converts a torchvision file): nothing
@@ -123,6 +125,15 @@ def _u_from_tree(tree, device) -> Optional[Dict[str, torch.Tensor]]:
     return out
 
 
+def _copy_into(u: Dict[str, torch.Tensor],
+               new: Mapping[str, torch.Tensor]) -> None:
+    """Each u vector's new value written into its tensor (a graph
+    captured over the step keeps reading the state's own tensors)."""
+    with torch.no_grad():
+        for name, vec in u.items():
+            vec.copy_(new[name])
+
+
 class SEANTrainState:
     """step, the generator (SEAN: parameters, Adam and, in its buffers,
     the running statistics `gen_stats`), the discriminator, and the two
@@ -177,7 +188,8 @@ class SEANTrainState:
                                                              layers))):
                 raise ValueError(f'{key} does not cover the weights this '
                                  'trainer normalises')
-            setattr(self, attr, u)
+            if u is not None:
+                _copy_into(getattr(self, attr), u)
         self.step = int(np.asarray(tree['step']))
 
 
@@ -340,7 +352,9 @@ class SEANTrainer:
             for k, b in batch_stats(sean).items():
                 b.copy_(stepped[k])
         safe_apply_updates(state.dis, d_grads, d_finite)
-        state.sn_u, state.dis_sn_u = new_u, new_du
+        for u, stepped_u in ((state.sn_u, new_u), (state.dis_sn_u, new_du)):
+            if u is not None:
+                _copy_into(u, stepped_u)
         state.step += 1
         metrics: Dict[str, Any] = {'g_total': g_total.detach(),
                                    'g_finite': g_finite,

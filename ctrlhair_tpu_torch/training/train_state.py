@@ -92,8 +92,9 @@ class Adam:
                 torch.tensor(self.bounds, dtype=torch.int32,
                              device=count.device))
         values, bounds = self._tables[key]
-        return values[torch.searchsorted(bounds, count.reshape(1),
-                                         right=True)[0]]
+        # a 1-element index: a 0-d tensor index would be read on the host
+        return values.index_select(0, torch.searchsorted(
+            bounds, count.reshape(1), right=True)).reshape(())
 
 
 class ModelOpt:

@@ -32,6 +32,7 @@ import torch
 from ctrlhair_tpu.training import shape_trainer as jst
 from ctrlhair_tpu.training.chunked import ChunkRunner as JaxChunkRunner
 from ctrlhair_tpu_torch.models.landmark_net import LandmarkNetConfig
+from ctrlhair_tpu_torch.training import chunked
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training import shape_trainer as pst
 from ctrlhair_tpu_torch.training.chunked import ChunkRunner
@@ -210,9 +211,11 @@ def test_chunked_landmark_takes_no_draws():
 
 
 def test_chunked_refuses_what_it_cannot_run():
-    """A trainer over a mesh (the collectives cannot be captured), its step
-    bound or wrapped, a state at another step than the run's start, and a
-    non-scalar metric."""
+    """A state at another step than the run's start, and a non-scalar
+    metric.  A trainer over a mesh is not refused on the CPU, where its
+    chunk runs eagerly (tests/test_torch_chunked_trainers.py runs one on
+    two gloo ranks); the card refuses a gloo mesh, whose collectives run
+    on the host (tests/test_torch_cuda.py)."""
     tr = pst.ShapeTrainer(PORT_SHAPE, device='cpu', mesh=object())
 
     @functools.wraps(tr.train_step)
@@ -221,8 +224,8 @@ def test_chunked_refuses_what_it_cannot_run():
 
     for step_fn in (tr.train_step, functools.partial(tr.train_step),
                     wrapped):
-        with pytest.raises(ValueError, match='mesh'):
-            ChunkRunner(step_fn, lambda s: None)
+        assert chunked._mesh_of(step_fn) is tr.mesh
+        ChunkRunner(step_fn, lambda s: None)
     tr, state, make_batch, make_draws = port_shape()
     runner = runner_of(tr, make_batch, make_draws)
     with pytest.raises(ValueError, match='at step 0'):
@@ -238,20 +241,99 @@ def test_chunked_refuses_what_it_cannot_run():
             state, 0, 1)
 
 
-def test_state_updates_in_place():
+def tiny_trainers():
+    """{name: () -> (state, step)} of the six trainers that ChunkRunner
+    runs, at the tests' tiny configs on the CPU: `step(state)` takes one
+    step on a seeded batch with the trainer's own draws."""
+    from ctrlhair_tpu_torch.data.landmark_dataset import training_batch
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    from ctrlhair_tpu_torch.training.color_texture_trainer import (
+        ColorTextureTrainer, synthetic_batch as ct_synthetic)
+    from ctrlhair_tpu_torch.training.predictor_trainer import (
+        PredictorTrainer)
+    from test_torch_bisenet_trainer import CFG as BISENET, bisenet_batch
+    from test_torch_sean_trainer import (
+        BATCH as SEAN_BATCH, port_trainer as sean_trainer, sean_batch)
+    from test_torch_trainers import (
+        TINY_CT, predictor_batch, predictor_cfgs)
+
+    def shape():
+        tr, state, make_batch, make_draws = port_shape()
+        return state, lambda st: tr.train_step(st, make_batch(0),
+                                               make_draws(0))
+
+    def landmark():
+        cfg = LandmarkNetConfig(input_size=32, base_channels=4, stages=2,
+                                hidden_dim=16)
+        tr = LandmarkTrainer(cfg, device='cpu')
+        batch = {k: torch.tensor(v) for k, v in training_batch(
+            np.random.default_rng(0), 4, cfg.input_size).items()}
+        return tr.init_state(0), lambda st: tr.train_step(st, batch)
+
+    def color_texture():
+        cfg = port_cfg(TINY_CT)
+        tr = ColorTextureTrainer(cfg, device='cpu')
+        state, preds = tr.init_state()
+        batch = ct_synthetic(torch.Generator().manual_seed(0), cfg, 8)
+        return state, lambda st: tr.train_step(st, batch, preds,
+                                               tr.draws(0, 8))
+
+    def predictor(which):
+        def build():
+            tr = PredictorTrainer(port_cfg(predictor_cfgs()[which]),
+                                  device='cpu')
+            batch = to_torch(predictor_batch(which, 0))
+            return tr.init_state(), lambda st: tr.train_step(
+                st, batch, tr.draws(0, batch['code'].shape[0]))
+        return build
+
+    def face_parser():
+        tr = BiSeNetTrainer(BISENET, device='cpu')
+        batch = to_torch(bisenet_batch(0))
+        return tr.init_state(), lambda st: tr.train_step(st, batch)
+
+    def sean():
+        tr = sean_trainer()
+        batch = to_torch(sean_batch(0))
+        return tr.init_state(), lambda st: tr.train_step(
+            st, batch, tr.draws(0, SEAN_BATCH))
+
+    return {'shape': shape, 'landmark': landmark,
+            'color_texture': color_texture, 'rgb': predictor('rgb'),
+            'curliness': predictor('curliness'), 'face_parser': face_parser,
+            'sean': sean}
+
+
+@pytest.mark.parametrize('name', ['shape', 'landmark', 'color_texture',
+                                  'rgb', 'curliness', 'face_parser', 'sean'])
+def test_state_updates_in_place(name):
     """A step and load_tree write the state's own tensors (Adam's count
-    included), as a captured graph needs; the loss schedule's device tables
-    give the host's weights."""
-    tr, state, make_batch, make_draws = port_shape()
+    and the SEAN trainer's power-iteration vectors included), as a graph
+    captured over the step needs: every tensor of state.tensors() keeps its
+    identity and its pointer, and the step moved the state."""
+    state, step = tiny_trainers()[name]()
     tensors = state.tensors()
     ptrs = [t.data_ptr() for t in tensors]
+    before = [t.clone() for t in tensors]
     tree = state.to_tree()
-    state, _ = tr.train_step(state, make_batch(0), make_draws(0))
-    assert int(state.gen.count) == 1
-    state.load_tree(tree)
-    assert int(state.gen.count) == 0
+    state, _ = step(state)
+    assert state.step == 1
     assert [t.data_ptr() for t in state.tensors()] == ptrs
     assert all(a is b for a, b in zip(state.tensors(), tensors))
+    assert any(not torch.equal(a, b) for a, b in zip(tensors, before))
+    state.load_tree(tree)
+    assert state.step == 0
+    assert [t.data_ptr() for t in state.tensors()] == ptrs
+    assert all(a is b for a, b in zip(state.tensors(), tensors))
+    assert all(torch.equal(a, b) for a, b in zip(tensors, before))
+
+
+def test_loss_schedule_device_tables():
+    """The loss schedule's device tables give the host's weights, and a
+    step moves Adam's count in place."""
+    tr, state, make_batch, make_draws = port_shape()
+    state, _ = tr.train_step(state, make_batch(0), make_draws(0))
+    assert int(state.gen.count) == 1
     cfg = dataclasses.replace(PORT_SHAPE, lambda_kl={0: 0.1, 3: 0.5, 7: 1.0})
     sch = L.LossSchedule(cfg)
     for step in range(10):
@@ -261,3 +343,15 @@ def test_state_updates_in_place():
                 assert got.dtype == torch.float32
                 assert float(got) == np.float32(sch.weight_host(name, step))
     assert len(sch._device_tables) == 4
+
+
+def test_captured_step_cannot_draw_for_itself():
+    """A step whose index is a tensor, as under capture, raises where it
+    would seed its own draws from it."""
+    from ctrlhair_tpu_torch.training.predictor_trainer import step_generator
+    with pytest.raises(TypeError, match='make_draws'):
+        step_generator(0, torch.tensor(3))
+    tr, state, make_batch, _ = port_shape()
+    state.step = torch.tensor(0)
+    with pytest.raises(TypeError, match='make_draws'):
+        tr.train_step(state, make_batch(0))

@@ -2,7 +2,9 @@
 # kernels against their plain versions, the warp's kernel route, the
 # multigrid blend, the float32 slice on the card against the same on the
 # CPU, and ChunkRunner's CUDA graphs against the same steps taken eagerly.
-# They skip without a CUDA device.  This file imports nothing of
+# ChunkRunner runs the tiny shape, landmark, colour/texture, predictor,
+# face-parser and SEAN trainers and the face parser over a one-rank NCCL
+# group.  They skip without a CUDA device.  This file imports nothing of
 # JAX, so on a machine with a card and no JAX it runs without the suite's
 # conftest:
 #     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -758,13 +760,104 @@ def _tiny_landmark_case(card):
     return tr, tr.init_state(0), make_batch, None
 
 
+def _on_card(batch, card):
+    from ctrlhair_tpu_torch.training.predictor_trainer import to_device
+    return {k: to_device(v, card) for k, v in batch.items()}
+
+
+def _tiny_ct_case(card):
+    """The colour/texture trainer at the tests' tiny config, its step in the
+    runner's argument order, the frozen predictors its extra argument."""
+    from ctrlhair_tpu_torch.training.color_texture_trainer import (
+        ColorTextureTrainer, synthetic_batch)
+    cfg = C.ColorTextureConfig(style_dim=64, g_hidden_dim=32,
+                               d_hidden_dim=32)
+    tr = ColorTextureTrainer(cfg, device=card, seed=3)
+    state, preds = tr.init_state(0)
+
+    def step(state, batch, draws, predictors):
+        return tr.train_step(state, batch, predictors, draws)
+
+    return (tr, state, lambda seed: _on_card(synthetic_batch(
+        torch.Generator().manual_seed(seed), cfg, 8), card),
+        lambda s: tr.draws(s, 8), step, (preds,))
+
+
+def _tiny_predictor_case(card, which):
+    import dataclasses
+    from ctrlhair_tpu_torch.training.predictor_trainer import (
+        PredictorTrainer)
+    cfg = C.PredictorConfig(style_dim=64, hidden_dim=32) \
+        if which == 'rgb' else dataclasses.replace(
+            C.curliness_predictor_config(), style_dim=64, hidden_dim=16)
+    tr = PredictorTrainer(cfg, device=card, seed=3)
+
+    def make_batch(seed):
+        code = torch.randn((32, 64),
+                           generator=torch.Generator().manual_seed(seed))
+        batch = {'code': code}
+        if which == 'rgb':
+            batch.update(rgb_mean=code[:, :3] * 40 + 128,
+                         pca_std=code[:, 3:4].abs() * 30 + 20)
+        else:
+            batch['curliness_label'] = torch.where(
+                code[:, :1] + code[:, 1:2] > 0, 1.0, -1.0)
+        return _on_card(batch, card)
+
+    return tr, tr.init_state(0), make_batch, lambda s: tr.draws(s, 32)
+
+
+def _tiny_bisenet_case(card, mesh=None):
+    from ctrlhair_tpu_torch.training.bisenet_trainer import BiSeNetTrainer
+    cfg = C.BiSeNetConfig(input_size=64, blocks_per_stage=1)
+    tr = BiSeNetTrainer(cfg, device=card, mesh=mesh)
+
+    def make_batch(seed):
+        g = torch.Generator().manual_seed(seed)
+        return _on_card({'image': torch.randn((2, 64, 64, 3), generator=g),
+                         'label': torch.randint(0, 19, (2, 64, 64),
+                                                generator=g)}, card)
+
+    return tr, tr.init_state(0), make_batch, None
+
+
+def _tiny_sean_case(card):
+    """_sean_trainer's SEAN (spectral norm, ACE noise), its noise drawn by
+    the runner's make_draws."""
+    from ctrlhair_tpu_torch.training.sean_trainer import synthetic_batch
+    tr = _sean_trainer(card)
+
+    def make_batch(seed):
+        return synthetic_batch(np.random.default_rng(seed), tr.cfg, 2, card)
+
+    return tr, tr.init_state(0), make_batch, lambda s: tr.draws(s, 2)
+
+
+def _tiny_case(card, which, nan_at=None):
+    """(step, state, make_batch, make_draws, extra args) of one trainer's
+    tiny case on the card."""
+    if which == 'color_texture':
+        tr, state, make_batch, make_draws, step, extra = _tiny_ct_case(card)
+        return step, state, make_batch, make_draws, extra
+    tr, state, make_batch, make_draws = {
+        'shape': lambda: _tiny_shape_case(card, nan_at),
+        'landmark': lambda: _tiny_landmark_case(card),
+        'rgb': lambda: _tiny_predictor_case(card, 'rgb'),
+        'curliness': lambda: _tiny_predictor_case(card, 'curliness'),
+        'face_parser': lambda: _tiny_bisenet_case(card),
+        'sean': lambda: _tiny_sean_case(card)}[which]()
+    return tr.train_step, state, make_batch, make_draws, ()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('which', ['shape', 'landmark'])
+@pytest.mark.parametrize('which', ['shape', 'landmark', 'color_texture',
+                                   'rgb', 'curliness', 'face_parser',
+                                   'sean'])
 def test_chunked_graph_on_card_equals_eager(card, which):
     """5 steps in chunks of 2 (a remainder of 1) through one captured
     graph against the same 5 steps taken eagerly from the same state, a
     NaN batch at step 3 of the shape trainer: the states bit-identical, the
-    step and Adam's count advanced (the NaN step counts a trip and no
+    step and Adam's counts advanced (the NaN step counts a trip and no
     update), the rows equal.  With deterministic cuDNN, on both sides:
     under cuDNN's defaults two eager runs of the shape steps already
     differ in the last bits (chip_smoke.py's phase (m) prints both gaps)."""
@@ -775,33 +868,84 @@ def test_chunked_graph_on_card_equals_eager(card, which):
         torch.backends.cudnn.deterministic = False
 
 
-def _chunked_against_eager(card, which):
+def _chunked_against_eager(card, which, make=None):
     from ctrlhair_tpu_torch.training.chunked import ChunkRunner
     nan_at = 3 if which == 'shape' else None
-    make = (lambda: _tiny_shape_case(card, nan_at)) if which == 'shape' \
-        else (lambda: _tiny_landmark_case(card))
-    tr, ref, make_batch, make_draws = make()
+    make = make or (lambda: _tiny_case(card, which, nan_at))
+    step, ref, make_batch, make_draws, extra = make()
     ref_rows = []
     for s in range(5):
         args = () if make_draws is None else (make_draws(s),)
-        ref, m = tr.train_step(ref, make_batch(s), *args)
+        ref, m = step(ref, make_batch(s), *args, *extra)
         ref_rows.append({k: float(v) for k, v in m.items()})
-    tr, state, make_batch, make_draws = make()
-    runner = ChunkRunner(tr.train_step, make_batch, make_draws=make_draws)
+    step, state, make_batch, make_draws, extra = make()
+    runner = ChunkRunner(step, make_batch, make_draws=make_draws)
     seen = []
     state, rows, trips = runner.run(
-        state, 0, 5, chunk_size=2, record_every=1,
+        state, 0, 5, chunk_size=2, record_every=1, extra_args=extra,
         on_chunk=lambda s, st, rws: seen.append(s))
     assert seen == [2, 4, 5] and runner.captures == 1
     assert trips == (1 if nan_at is not None else 0)
     assert state.step == 5
-    model = state.gen if which == 'shape' else state.model
-    assert int(model.count) == 5 - trips
+    parts = state.parts().values() if hasattr(state, 'parts') \
+        else [state.model]
+    for part in parts:
+        if hasattr(part, 'count'):      # Adam's; SGD keeps none
+            assert int(part.count) == 5 - trips
     np.testing.assert_array_equal(
         [[r[k] for k in sorted(ref_rows[0])] for r in rows],
         [[r[k] for k in sorted(r)] for r in ref_rows])
     for a, b in zip(state.tensors(), ref.tensors()):
         assert torch.equal(a, b)
+
+
+def _one_rank_group(card, tmp_path, backend):
+    """A one-rank process group on the card over `backend` and its mesh."""
+    from ctrlhair_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
+    initialize_runtime(card, init_method=f'file://{tmp_path / "store"}',
+                       world_size=1, rank=0, backend=backend, timeout=120.0)
+    return make_mesh(1, device=card)
+
+
+@pytest.mark.cuda
+def test_chunked_graph_over_one_rank_nccl_group(card, tmp_path):
+    """The face parser over a one-rank NCCL group: its collectives (the
+    gradient buckets, synced batch norm, the metrics' mean) captured in the
+    graph, 5 steps in chunks of 2 bit-identical to the same steps taken
+    eagerly through the group (deterministic cuDNN)."""
+    import torch.distributed as dist
+    mesh = _one_rank_group(card, tmp_path, 'nccl')
+    torch.backends.cudnn.deterministic = True
+    try:
+        def make():
+            tr, state, make_batch, _ = _tiny_bisenet_case(card, mesh)
+            return tr.train_step, state, make_batch, None, ()
+
+        before = mesh.collectives
+        _chunked_against_eager(card, 'face_parser', make)
+        assert mesh.collectives > before
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_chunked_refuses_a_gloo_mesh_on_card(card, tmp_path):
+    """gloo's collectives run on the host and cannot be captured: on the
+    card a trainer over a gloo mesh is refused before any step, its step
+    bound or wrapped."""
+    import functools
+    import torch.distributed as dist
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    mesh = _one_rank_group(card, tmp_path, 'gloo')
+    try:
+        tr, state, make_batch, _ = _tiny_bisenet_case(card, mesh)
+        for step in (tr.train_step, functools.partial(tr.train_step)):
+            with pytest.raises(ValueError, match='gloo'):
+                ChunkRunner(step, make_batch).run(state, 0, 2, chunk_size=2)
+        assert state.step == 0
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

@@ -364,3 +364,52 @@ def tp_on_rank(mesh, payload):
     out['critic'] = critic_under_penalty(mesh)
     out['mesh'] = (mesh.rank, mesh.tp_rank, mesh.world, mesh.tp)
     return out
+
+
+# ------------------------------------------------------ chunked training
+def ct_chunked_on_rank(mesh, spec):
+    """The colour/texture trainer over this mesh from spec['init_tree'],
+    its frozen predictors from spec['pred_trees'] (flax variables): its
+    steps through ChunkRunner, spec['steps'] in chunks of spec['chunk'],
+    and the same steps through the per-step loop, on this rank's rows of
+    spec['batches'][seed] with the global draws spec['draws'][seed]:
+    (chunked tree, per-step tree, rows, trips, [(step, tree)] after each
+    chunk, the tree after the runner's 1-step run over [0, 1))."""
+    from ctrlhair_tpu_torch.convert import load_variables
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    bseed, sseed, steps = spec['batch_seed'], spec['step_seed'], \
+        spec['steps']
+
+    def build():
+        trainer = ColorTextureTrainer(spec['cfg'], device='cpu', mesh=mesh)
+        state, preds = trainer.init_state()
+        state.load_tree(spec['init_tree'])
+        for k, p in preds.items():
+            load_variables(p, k, spec['pred_trees'][k])
+        return trainer, state, preds
+
+    def make_batch(seed):
+        return shard_batch(tensors(spec['batches'][seed]), mesh)
+
+    def make_draws(seed):
+        return tensors(spec['draws'][seed])
+
+    trainer, state, preds = build()
+    seen = []
+    runner = ChunkRunner(
+        lambda st, batch, draws, p: trainer.train_step(st, batch, p, draws),
+        make_batch, make_draws=make_draws, batch_seed=bseed,
+        step_seed=sseed)
+    state, rows, trips = runner.run(
+        state, 0, steps, chunk_size=spec['chunk'], record_every=1,
+        extra_args=(preds,),
+        on_chunk=lambda s, st, rws: seen.append((s, st.to_tree())))
+    chunked = state.to_tree()
+    _, state, _ = build()
+    state, _, _ = runner.run(state, 0, 1, extra_args=(preds,))
+    first = state.to_tree()
+    step_trainer, state, step_preds = build()
+    for s in range(steps):
+        state, _ = step_trainer.train_step(
+            state, make_batch(bseed + s), step_preds, make_draws(sseed + s))
+    return chunked, state.to_tree(), rows, trips, seen, first
