@@ -20,10 +20,13 @@ Drives the port's four paths at the full default PipelineConfig() width:
      families' weights are held to their checkpoints by checksum;
   4. the serving surface, each part on a Backend() of its own after the
      last is freed: the web server as `python -m ctrlhair_tpu_torch.ui.web`
-     builds it, served on 127.0.0.1 and driven over HTTP (both photos,
-     every slider, the three transfers and random draws, the images, one
-     bad request of each kind; the served PNGs decode to the held arrays),
-     then auto_curate('texture') and render_candidate_grids on its session;
+     builds it, its worker warmed first (HairEditor.warm_start at batch 1
+     on zero inputs, its K1 launches counted apart), served on 127.0.0.1
+     and driven over HTTP (both photos, every slider, the three transfers
+     and random draws, the images, one bad request of each kind; the
+     served PNGs decode to the held arrays), the first Backend.output on a
+     new warmed worker against one on an unwarmed worker, then
+     auto_curate('texture') and render_candidate_grids on its session;
      the headless demo (ui.demo.main) in this process; and the multigrid
      blend on the card against the CPU;
   5. the training slice, its launch counts set to 0 before it and read
@@ -57,15 +60,21 @@ Drives the port's four paths at the full default PipelineConfig() width:
      canvas (the transfer matrix of samples/input.png and its mirror image)
      and a data-prep pass over a folder made from them (crop, parse, SEAN
      codes, colour statistics, median codes, landmarks) on Backend()'s
-     editor;
+     editor; then phase (n), the curation entry point
+     (pipeline.find_directions.main) in this process on cuda:0, each route
+     with its launch counts set to 0 before it and read after it: --pool-dir
+     on the pool of (d), --auto for the texture slots, and the candidate
+     grids with --choose, every directory temporary, model_trained/ held
+     unchanged;
   6. data parallelism, phase (k), its launch counts set to 0 before it and
      read after it: (k1) a one-rank NCCL group in this process, the
      colour/texture, shape, face-parser and SEAN trainers of the training
      phase at their configs and batches, two steps through the group held
      bit-equal to two plain steps, then timed against them, the gradient
      reduce alone by CUDA events, and the face parser through
-     ChunkRunner over the NCCL group, its collectives captured in the CUDA
-     graph, bit-identical to the same eager steps; (k2) the face parser at
+     ChunkRunner over the NCCL group after eager steps through it, its
+     collectives captured in the CUDA graph, bit-identical to the same
+     steps taken eagerly; (k2) the face parser at
      32 px on two gloo ranks on cuda:0 against one process on the global
      batch (run in the two ranks phase (l) spawns); (k3) run_bisenet under
      python -m torch.distributed.run --nproc_per_node 1, resumed in this
@@ -1294,10 +1303,15 @@ def phase_web(tmp: str, smi: str):
     with open(jpeg, 'wb') as f:
         f.write(b'\xff\xd8\xff\xe0\x00\x10JFIF\x00' + bytes(64))
 
+    reset_launches()
     t0 = time.perf_counter()
     editor = web.build_web_editor()
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
+    # the worker's first job, the editor's warm-up on zero inputs at batch
+    # 1: a blend in output and one in output_refresh
+    warm_ms = editor.join_warm()
+    warm_launches = read_launches('web warm-up', 2, 0)
     be = editor.backend
     if be.device.type != 'cuda' or set(be.loaded_families) != SHIPPED:
         raise AssertionError('build_web_editor() did not build on the card '
@@ -1385,11 +1399,13 @@ def phase_web(tmp: str, smi: str):
             times['backend.output_no_cudnn'] = p50(be.output, 5)
             times['backend.output_new_thread_no_cudnn'] = p50(
                 lambda: in_new_thread(be.output), 5)
+        first = first_worker_outputs(web.WebEditor, be)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
     record = {'build_ms': build_ms, 'requests': len(steps),
+              'warm_up': {'ms': warm_ms, 'launches': warm_launches, **first},
               'renders': WEB_RENDERS, 'launches': launches,
               'state_sliders': state['sliders'], 'ssim_output_vs_fresh': same,
               'png_bytes_output': len(results['image_output'][1]),
@@ -1401,7 +1417,44 @@ def phase_web(tmp: str, smi: str):
     for k, v in times.items():
         what = 'HTTP round trip' if k.startswith('web.') else 'wall'
         log(f'[time] {k}: {v:.3f} ms median {what} ({smi})')
+    log(f'[web] warm-up: the worker\'s first job, warm_start() at batch 1 '
+        f'on zero inputs, {warm_ms:.3f} ms, launches {warm_launches}; the '
+        'first Backend.output on a new worker thread, warmed: '
+        + ', '.join(f'{v:.3f}' for v in first['first_output_ms']['warmed'])
+        + ' ms (its warm-up '
+        + ', '.join(f'{v:.3f}' for v in first['warm_up_ms'])
+        + ' ms), unwarmed: '
+        + ', '.join(f'{v:.3f}' for v in first['first_output_ms']['unwarmed'])
+        + ' ms; in this process that is the per-thread cost only: the '
+        'libraries and cuDNN\'s start-up were paid by earlier phases '
+        f'({smi})')
     return editor, launches, record
+
+
+def first_worker_outputs(web_editor, be) -> dict:
+    """The first Backend.output on the worker thread of a new WebEditor
+    over `be`, with its warm-up (warm=True) and without, in turns (warmed,
+    unwarmed, unwarmed, warmed): host ms, each ended by
+    torch.cuda.synchronize(), and the warm-ups' ms."""
+    def first_output():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.output()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {'warmed': [], 'unwarmed': []}
+    warm_ms = []
+    for warm in (True, False, False, True):
+        w = web_editor(be, warm=warm)
+        try:
+            if warm:
+                warm_ms.append(w.join_warm())
+            out['warmed' if warm else 'unwarmed'].append(
+                w._worker.submit(first_output).result())
+        finally:
+            w.close()
+    return {'first_output_ms': out, 'warm_up_ms': warm_ms}
 
 
 def phase_curation(be, tmp: str, smi: str):
@@ -1522,11 +1575,14 @@ def phase_serving(mg_case, blend_ms: float, smi: str):
         gc.collect()
         torch.cuda.empty_cache()
     mg_rec = phase_multigrid(mg_case, blend_ms, smi)
+    warm = web_rec['warm_up']['launches']
     launches = {
-        'masked_cg': {'web': web_launches['masked_cg'],
+        'masked_cg': {'web_warm_up': warm['masked_cg'],
+                      'web': web_launches['masked_cg'],
                       'curation': cur_launches,
                       'demo': demo_launches['masked_cg']},
-        'raster_uv': {'web': web_launches['raster_uv'], 'curation': 0,
+        'raster_uv': {'web_warm_up': warm['raster_uv'],
+                      'web': web_launches['raster_uv'], 'curation': 0,
                       'demo': demo_launches['raster_uv']}}
     return launches, {'web': web_rec, 'curation': cur_rec, 'demo': demo_rec,
                       'multigrid': mg_rec}
@@ -2804,10 +2860,11 @@ def phase_train_entry_points(root: str, smi: str) -> dict:
 # that phase (l) spawns, as a dp mesh of its own, before (l)'s steps (a
 # spawn of two ranks costs seconds).  (k3) run_bisenet under
 # python -m torch.distributed.run, resumed in this process.  And in (k1),
-# the face parser over the group through ChunkRunner: K1_CHUNK_STEPS steps
-# in chunks of K1_CHUNK_SIZE, its collectives (the gradient buckets, the
+# the face parser over the group through ChunkRunner: K1_CHUNK_STEPS eager
+# steps through the group, then K1_CHUNK_STEPS more of that same state in
+# chunks of K1_CHUNK_SIZE, its collectives (the gradient buckets, the
 # metrics' mean, synced batch norm) captured in the CUDA graph, against
-# the same steps taken eagerly through the group, bit for bit
+# 2 * K1_CHUNK_STEPS steps taken eagerly through the group, bit for bit
 # (deterministic cuDNN).
 DP_CHECK_STEPS, DP_TIME_STEPS, DP_GAP_BAR = 2, 3, 1e-6
 K1_CHUNKED, K1_CHUNK_STEPS, K1_CHUNK_SIZE = 'bisenet', 5, 2
@@ -2913,44 +2970,53 @@ def dp_trainer_case(name, make, batches, mesh, smi) -> dict:
 @deterministic
 def k1_chunked_case(name, make, batches, mesh, smi) -> dict:
     """(k1) one trainer over the one-rank NCCL group through ChunkRunner,
-    as the comment above says."""
+    as the comment above says: K1_CHUNK_STEPS eager steps through the
+    group, then K1_CHUNK_STEPS more chunked from that same state (its
+    tensors put back after the eager reference's next K1_CHUNK_STEPS
+    steps), against the 2 * K1_CHUNK_STEPS eager steps."""
     from ctrlhair_tpu_torch.parallel.mesh import replicated, shard_batch
     from ctrlhair_tpu_torch.training.chunked import WARMUP_STEPS, ChunkRunner
     def make_batch(seed):
         return shard_batch(batches[seed % len(batches)], mesh)
 
+    k = K1_CHUNK_STEPS
     trainer, state, args = make('cuda', mesh=mesh)
     replicated(state, mesh)
-    for s in range(K1_CHUNK_STEPS):
+    for s in range(2 * k):
+        if s == k:
+            at_k = [t.clone() for t in state.tensors()]
         state, _ = trainer.train_step(state, make_batch(s), *args(state))
     eager = [t.clone() for t in state.tensors()]
-    del trainer, state
-    # the chunked run on a state of its own, from the same seed
-    trainer, state, args = make('cuda', mesh=mesh)
-    replicated(state, mesh)
+    with torch.no_grad():
+        for t, v in zip(state.tensors(), at_k):
+            t.copy_(v)
+    state.step = k
+    del at_k
     runner = ChunkRunner(trainer.train_step, make_batch)
     before = mesh.collectives
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, rows, trips = runner.run(state, 0, K1_CHUNK_STEPS,
+    state, rows, trips = runner.run(state, k, 2 * k,
                                     chunk_size=K1_CHUNK_SIZE, record_every=1)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     per_step = (mesh.collectives - before) / (WARMUP_STEPS + 1)
     identical, gap = state_gap(state.tensors(), eager)
     if not identical or trips != 0 or runner.captures != 1 or \
-            state.step != K1_CHUNK_STEPS or not per_step:
+            state.step != 2 * k or not per_step:
         raise AssertionError(
-            f'(k1) {name} chunked over the NCCL group: bit-identical '
-            f'{identical} (gap {gap:.3g}), {trips} trips, '
-            f'{runner.captures} captures, {per_step} collectives a step')
+            f'(k1) {name} chunked over the NCCL group after {k} eager '
+            f'steps: bit-identical {identical} (gap {gap:.3g}), {trips} '
+            f'trips, {runner.captures} captures, {per_step} collectives a '
+            'step')
     log(f'[parallel] k1 {name} through ChunkRunner over the one-rank NCCL '
-        f'group: {K1_CHUNK_STEPS} steps in chunks of {K1_CHUNK_SIZE}, '
+        f'group: {k} eager steps through the group, then steps {k} to '
+        f'{2 * k - 1} of the same state in chunks of {K1_CHUNK_SIZE}, '
         f'{per_step:.0f} collectives a step captured in the graph, '
-        f'bit-identical to the same eager steps through the group; '
-        f'{wall:.1f} ms with the capture of {runner.capture_ms[0]:.1f} ms '
-        f'(deterministic cuDNN; {smi})')
-    return {'steps': K1_CHUNK_STEPS, 'chunk_size': K1_CHUNK_SIZE,
+        f'bit-identical to {2 * k} eager steps; {wall:.1f} ms with the '
+        f'capture of {runner.capture_ms[0]:.1f} ms (deterministic cuDNN; '
+        f'{smi})')
+    return {'eager_steps': k, 'steps': k, 'chunk_size': K1_CHUNK_SIZE,
             'bit_identical': identical, 'finite_trips': trips,
             'captures': runner.captures,
             'collectives_per_step': per_step, 'wall_ms': wall,
@@ -3973,6 +4039,7 @@ def phase_training(smi: str, dp_cases: dict):
     prep pass, (c) and (h) the entry points.
     Timed with cuDNN's defaults, as the entry points run; the checks run
     with deterministic cuDNN algorithms (deterministic)."""
+    import shutil
     import tempfile
     reset_launches()
     rec, seconds = {}, {}
@@ -3989,6 +4056,10 @@ def phase_training(smi: str, dp_cases: dict):
         root, shape_batches, rec['warp_pool'] = run(
             'warp_pool', phase_train_pool, tmp, smi)
         dp_cases['chunked'] = {'shape_pool': device_shape_pool(root)}
+        # phase (n) reads the pool after this folder is gone
+        dp_cases['curation_pool'] = shutil.copytree(
+            os.path.join(root, 'shape_training_wrap_pool'),
+            tempfile.mkdtemp(prefix='curation_pool_'), dirs_exist_ok=True)
         rec['shape'] = run('shape', phase_train_shape, shape_batches, smi,
                            dp_cases)
         del shape_batches
@@ -4012,6 +4083,98 @@ def phase_training(smi: str, dp_cases: dict):
         f'{k} {v:.1f}' for k, v in sorted(LAPS.items(),
                                           key=lambda kv: -kv[1])))
     return read_launches('training', 0, POOL_WARPS), rec
+
+
+# ------------------------------------------------------- curation tool
+# Phase (n), the curation entry point as a user runs it (python -m
+# ctrlhair_tpu_torch.pipeline.find_directions), each route in this process
+# on cuda:0 (Backend() from model_trained/, blending off, samples/input.png
+# cropped), its launch counts set to 0 before it and read after it, every
+# --out-dir and --save-dir in a temporary folder: --att shape --pool-dir
+# on the warp pool of (d) (24 masks: more than the 16-d latent needs, fewer
+# than the 64 below which the tool warns), --att texture --auto --n 3, and
+# --att shape --n 2 --choose 1 --index 0.  Each route writes the files
+# the JAX script writes, and load_directions reads its slots back; with
+# blending off no route launches K1, and none warps, so none launches K2.
+# model_trained/ is held unchanged across the phase.
+CURATION_ROUTES = (
+    ('pool_dir', ['--att', 'shape', '--pool-dir', None], 4,
+     ['shape_dir_regression.json'] + [f'slot_{i}_shape.png'
+                                      for i in range(4)]),
+    ('auto', ['--att', 'texture', '--auto', '--n', '3'], 2,
+     ['slot_0_texture.png', 'slot_1_texture.png', 'texture_curation.json']),
+    ('choose', ['--att', 'shape', '--n', '2', '--choose', '1', '--index',
+                '0'], 1, ['candidate_000.png', 'candidate_001.png']))
+
+
+def tree_listing(root: str) -> list:
+    """(path, size, mtime_ns) of every file under root."""
+    out = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out.append((os.path.join(d, f), st.st_size, st.st_mtime_ns))
+    return sorted(out)
+
+
+def phase_curation_tool(pool_dir: str, smi: str):
+    """Phase (n), as the comment above says.  Returns (launches by route,
+    record)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import warnings
+    from ctrlhair_tpu_torch.pipeline import find_directions
+    from ctrlhair_tpu_torch.pipeline.direction_finder import load_directions
+    sample = os.path.join(ROOT, 'samples', 'input.png')
+    trained = tree_listing(os.path.join(ROOT, 'model_trained'))
+    launches, rec = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, argv, slots, files in CURATION_ROUTES:
+                out_dir = os.path.join(tmp, name, 'out')
+                save_dir = os.path.join(tmp, name, 'dirs')
+                argv = [pool_dir if a is None else a for a in argv] + [
+                    '--input', sample, '--out-dir', out_dir,
+                    '--save-dir', save_dir]
+                said = io.StringIO()
+                reset_launches()
+                t0 = time.perf_counter()
+                with warnings.catch_warnings(record=True) as caught, \
+                        contextlib.redirect_stdout(said):
+                    warnings.simplefilter('always')
+                    find_directions.main(argv)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches[name] = read_launches(f'find_directions {name}', 0,
+                                               0)
+                dirs = load_directions(save_dir)
+                norms = [float(np.linalg.norm(d)) for d in dirs or []]
+                lines = said.getvalue().splitlines()
+                inflated = [str(w.message) for w in caught
+                            if 'R^2 may be inflated' in str(w.message)]
+                if dirs is None or len(dirs) != slots or \
+                        sorted(os.listdir(out_dir)) != sorted(files) or \
+                        not all(abs(n - 1.0) < 1e-4 for n in norms) or \
+                        bool(inflated) != (name == 'pool_dir'):
+                    raise AssertionError(
+                        f'find_directions {name}: slots {norms}, files '
+                        f'{sorted(os.listdir(out_dir))}, warnings '
+                        f'{inflated}, said {lines}')
+                rec[name] = {'argv': argv[:-6], 'ms': ms,
+                             'launches': launches[name], 'slots': len(dirs),
+                             'files': sorted(files), 'printed': lines}
+                log(f'[curation tool] find_directions '
+                    f'{" ".join(argv[:-6])}: {ms:.3f} ms in this process, '
+                    f'Backend() build included; launches {launches[name]}; '
+                    f'{len(dirs)} slots read back by load_directions; '
+                    f'printed {lines} ({smi})')
+    finally:
+        shutil.rmtree(pool_dir, ignore_errors=True)
+    if tree_listing(os.path.join(ROOT, 'model_trained')) != trained:
+        raise AssertionError('the curation routes changed model_trained/')
+    return launches, rec
 
 
 def main() -> int:
@@ -4194,6 +4357,13 @@ def main() -> int:
     t_phase['training'] = time.perf_counter() - t_start - sum(
         t_phase.values())
 
+    # 9b. phase (n), the curation entry point: the counts set to 0 before
+    # each route and read after it
+    n_launches, curation_tool = phase_curation_tool(
+        dp_cases.pop('curation_pool'), smi)
+    t_phase['curation_tool'] = time.perf_counter() - t_start - sum(
+        t_phase.values())
+
     # 10. phase (k), data parallelism: both counts set to 0 before it and
     # read after it
     p_launches, parallel = phase_parallel(dp_cases, smi)
@@ -4224,12 +4394,15 @@ def main() -> int:
         'launches': launches + b_launches['masked_cg']
         + d_launches['masked_cg'] + sum(s_launches['masked_cg'].values())
         + t_launches['masked_cg'] + p_launches['masked_cg']
-        + l_launches['masked_cg'] + m_launches['masked_cg'],
+        + l_launches['masked_cg'] + m_launches['masked_cg']
+        + sum(n['masked_cg'] for n in n_launches.values()),
         'launches_by_path': {'editor': launches,
                              'backend': b_launches['masked_cg'],
                              'deployment': d_launches['masked_cg'],
                              **s_launches['masked_cg'],
                              'training': t_launches['masked_cg'],
+                             **{f'find_directions_{k}': n['masked_cg']
+                                for k, n in n_launches.items()},
                              'parallel': p_launches['masked_cg'],
                              'tensor_parallel': l_launches['masked_cg'],
                              'chunked': m_launches['masked_cg']},
@@ -4241,12 +4414,15 @@ def main() -> int:
         'launches': raster_launches + b_launches['raster_uv']
         + d_launches['raster_uv'] + sum(s_launches['raster_uv'].values())
         + t_launches['raster_uv'] + p_launches['raster_uv']
-        + l_launches['raster_uv'] + m_launches['raster_uv'],
+        + l_launches['raster_uv'] + m_launches['raster_uv']
+        + sum(n['raster_uv'] for n in n_launches.values()),
         'launches_by_path': {'editor': raster_launches,
                              'backend': b_launches['raster_uv'],
                              'deployment': d_launches['raster_uv'],
                              **s_launches['raster_uv'],
                              'training': t_launches['raster_uv'],
+                             **{f'find_directions_{k}': n['raster_uv']
+                                for k, n in n_launches.items()},
                              'parallel': p_launches['raster_uv'],
                              'tensor_parallel': l_launches['raster_uv'],
                              'chunked': m_launches['raster_uv']},
@@ -4265,7 +4441,8 @@ def main() -> int:
         'session_check': session_check, 'reference': reference,
         'backend_check': {**warp_check, **routes_check},
         'deployment': deployment, 'serving': serving,
-        'training': training, 'parallel': parallel,
+        'training': training, 'curation_tool': curation_tool,
+        'parallel': parallel,
         'tensor_parallel': tensor_parallel, 'chunked': chunked,
         'phase_seconds': t_phase,
         'seconds': time.perf_counter() - t_start}}))

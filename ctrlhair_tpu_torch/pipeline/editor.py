@@ -17,12 +17,17 @@
 # landmarks, ops/crop.py), get_hair_color (mean colour of the eroded hair at
 # 1024 px) and the instance transfer (generate_by_sean,
 # generate_instance_transfer_img).
+# warm_start runs every interactive stage once on zero-filled inputs, as
+# the JAX editor's warm start does: there it loads the compiled programs,
+# here it builds and loads the kernels' libraries, lets cuDNN pick its
+# algorithms and grows the caching allocator before the first request.
 
 from __future__ import annotations
 
 import os
+import threading
 import warnings
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,7 +80,11 @@ class HairEditor(nn.Module):
     """
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0,
+                 warm_batches: Optional[Sequence[int]] = None):
+        """warm_batches: batch sizes to warm the interactive stages for on
+        a background thread started once the parameters are drawn (see
+        warm_start); join_warm() waits for it."""
         super().__init__()
         if not cfg.use_pallas_blend:
             raise ValueError('HairEditor: use_pallas_blend=False has no '
@@ -102,6 +111,16 @@ class HairEditor(nn.Module):
         self.eval()
         self.requires_grad_(False)
         self.init_params(seed)
+        self._warm_threads: List[threading.Thread] = []
+        if warm_batches:
+            self._warm_threads = self.warm_start(batch_sizes=warm_batches,
+                                                 block=False)
+
+    def join_warm(self) -> None:
+        """Wait for the warm-up threads that warm_batches started."""
+        for t in self._warm_threads:
+            t.join()
+        self._warm_threads = []
 
     # ------------------------------------------------------------------ init
     def init_params(self, seed: int = 0) -> None:
@@ -316,6 +335,14 @@ class HairEditor(nn.Module):
                                   self._as(label512, torch.int32))
 
     @torch.inference_mode()
+    def analyze(self, img_u8, img_parse_u8) -> Dict[str, object]:
+        """The analysis of a batch: img_u8 [N,S,S,3] at the edit size,
+        img_parse_u8 [N,P,P,3] the same photos for the parser."""
+        return self._analyze_tail(
+            self._as(img_u8, torch.uint8),
+            self._parse(self._as(img_parse_u8, torch.uint8)))
+
+    @torch.inference_mode()
     def analyze_image(self, img_u8: np.ndarray) -> Dict[str, object]:
         """Host entry: one uint8 RGB image of any size -> analysis dict."""
         s = self.cfg.edit_size
@@ -354,6 +381,61 @@ class HairEditor(nn.Module):
                                   self._as(face_img_u8, torch.uint8),
                                   self._as(face_label, torch.int32),
                                   self._as(target_label, torch.int32))
+
+    # ------------------------------------------------------------ warm start
+    def warm_start(self, batch_sizes: Sequence[int] = (1,),
+                   block: bool = True) -> List[threading.Thread]:
+        """Run every interactive stage once ahead of its first real use,
+        on zero-filled inputs at this editor's sizes: the JAX editor's list
+        of jobs, output, output_refresh and decode_mask for each batch
+        size, then parse and analyze_tail at batch 1 (the interactive
+        analysis) and analyze at larger batches.  The stages run under
+        inference mode, so no parameter, buffer or session changes.
+
+        cuDNN keeps part of its state per thread, so a server warms the
+        thread that serves (ui/web.WebEditor).  With block=False the jobs
+        run on one daemon thread, which is returned; else they run here and
+        an empty list is returned."""
+        s, p = self.cfg.edit_size, self.cfg.bisenet.input_size
+        zeros = lambda *shape, dtype=torch.float32: torch.zeros(
+            shape, dtype=dtype, device=self.device)
+
+        def latent(b):
+            return Latent(hsv=zeros(b, 3), pca_std=zeros(b, 1),
+                          curliness=zeros(b, 1),
+                          texture=zeros(b, self.cfg.color_texture.noise_dim),
+                          shape=zeros(b, self.cfg.shape.hair_dim),
+                          face=zeros(b, self.cfg.shape.face_dim))
+
+        jobs = []
+        for b in batch_sizes:
+            codes = zeros(b, NUM_CLASSES, self.cfg.sean.style_dim)
+            img = zeros(b, s, s, 3, dtype=torch.uint8)
+            label = zeros(b, s, s, dtype=torch.int32)
+            jobs.append((self.output, (codes, latent(b), img, label, label)))
+            jobs.append((self.output_refresh, (codes, latent(b), img, label)))
+            jobs.append((self.decode_mask, (latent(b).shape, latent(b).face)))
+            img_p = zeros(b, p, p, 3, dtype=torch.uint8)
+            if b == 1:
+                jobs.append((self.parse, (img_p,)))
+                jobs.append((self.analyze_tail,
+                             (img, zeros(b, p, p, dtype=torch.int32))))
+            else:
+                jobs.append((self.analyze, (img, img_p)))
+
+        def run_all():
+            for f, args in jobs:
+                f(*args)
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
+
+        if block:
+            run_all()
+            return []
+        t = threading.Thread(target=run_all, daemon=True,
+                             name='editor-warm-start')
+        t.start()
+        return [t]
 
     # ----------------------------------------------------- photo helpers
     @torch.inference_mode()

@@ -32,7 +32,12 @@
 # for itself from state.step raises there (predictor_trainer.
 # step_generator), so a step that draws takes make_draws.  The eager
 # warm-up steps that capture needs advance the state, so the state is
-# copied before them and restored in place after.  The runner holds one
+# copied before them and restored in place after.  Any state may be
+# captured, also one that has taken eager steps and whose tensors the
+# caller still holds copies of: before the warm-up each trainable leaf
+# gets a new autograd identity over the same storage (_fresh_leaves), so
+# that the capture's backward meets no gradient accumulator made earlier
+# on the default stream.  The runner holds one
 # graph, which serves every chunk, the remainder included; it is captured
 # anew when the structure or shapes of the batch and draws, or the tensors
 # of the state or of the extra arguments (a module's parameters and
@@ -108,6 +113,28 @@ def _module_tensors(tree) -> list:
             for t in (*v.parameters(), *v.buffers())]
 
 
+def _fresh_leaves(tensors) -> None:
+    """Give each trainable leaf among `tensors` a new autograd identity
+    over the same storage (torch.utils.swap_tensors: the object, its
+    attributes, its pointer and its values stay).  A leaf's gradient
+    accumulator is made on the stream current when the leaf first enters
+    an autograd graph, and lives as long as any graph that reaches the
+    leaf: a copy of a parameter taken with gradients on (p.clone()) keeps
+    one made on the legacy default stream.  A capture whose backward went
+    through such accumulators over an NCCL group was invalidated in every
+    run (the face parser's state copied after eager steps:
+    tests/test_torch_cuda.py).  With a new identity the warm-up makes the
+    accumulators anew on its own stream; an old one raises if a backward
+    ever reaches it."""
+    for t in tensors:
+        if t.requires_grad and t.is_leaf:
+            fresh = (torch.nn.Parameter(t.detach(), requires_grad=True)
+                     if isinstance(t, torch.nn.Parameter)
+                     else t.detach().requires_grad_())
+            fresh.__dict__.update(t.__dict__)
+            torch.utils.swap_tensors(t, fresh)
+
+
 def _fresh_memory(device) -> None:
     """Called before the warm-up, before the capture and after it.  cuBLAS
     keeps a workspace per stream; one made during a capture lies in that
@@ -117,12 +144,8 @@ def _fresh_memory(device) -> None:
     are dropped, as torch.compile's CUDA graphs drop them.  A SEANConfig()
     step captured after another graph of it had been freed stood 0.0183
     from its eager loop with deterministic cuDNN until they were.  Garbage
-    is collected too: an earlier step's autograd graph that is still alive
-    keeps its parameters' gradient accumulators and the stream they were
-    made on, which the capture's backward must not wait on (over an NCCL
-    mesh, a state that had just taken eager steps through the group was
-    seen to fail to capture all the same: start such a run from a state
-    that has not)."""
+    is collected too, so that an earlier step's autograd graph that is no
+    longer referenced lets go of its gradient accumulators."""
     torch.cuda.synchronize(device)
     torch._C._cuda_clearCublasWorkspaces()
     gc.collect()
@@ -221,7 +244,9 @@ class ChunkRunner:
         slots = [t.detach().clone() for t in _flatten(inputs)[0]]
         inputs = _with_tensors(inputs, slots)
         host_step = state.step
-        saved = [t.clone() for t in tensors]
+        _fresh_leaves(tensors)
+        with torch.no_grad():
+            saved = [t.clone() for t in tensors]
         t0 = time.perf_counter()
         _fresh_memory(device)
         side = torch.cuda.Stream(device)

@@ -13,12 +13,17 @@
 #
 # runs the full-width editor on the first CUDA device (--device cpu runs it
 # on the CPU; without a card and without that flag it exits with an error).
+# The server accepts requests at once; the editor's worker thread first
+# warms the interactive stages (HairEditor.warm_start), as the JAX server
+# warms its programs, and requests queue behind it.
 
 from __future__ import annotations
 
 import functools
 import json
+import sys
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
@@ -136,6 +141,14 @@ def _on_worker(action):
     return call
 
 
+def _report_failure(future) -> None:
+    """Print the error of the warm-up, whose result no request reads."""
+    err = future.exception()
+    if err is not None:
+        print(f'web editor: the warm-up failed: {err!r}', file=sys.stderr,
+              flush=True)
+
+
 class WebEditor:
     """Backend session + HTTP endpoints; one lock serialises edits.
 
@@ -144,10 +157,13 @@ class WebEditor:
     (grad mode, which a new thread starts with on, and caches of the card's
     libraries, which a new thread builds again), so each request would
     otherwise start cold.  Actions run under torch.no_grad(), so nothing a
-    request computes records an autograd graph.  close() stops the
-    worker."""
+    request computes records an autograd graph.  With warm=True the
+    worker's first job is the editor's warm_start, so that the first
+    request finds that thread's state built; requests queue behind it, and
+    `warm` is its future (host ms).  close() stops the worker."""
 
-    def __init__(self, backend, maximum_value_fe: float = 2.0):
+    def __init__(self, backend, maximum_value_fe: float = 2.0,
+                 warm: bool = False):
         self.backend = backend
         self.max_fe = maximum_value_fe
         self.lock = threading.Lock()
@@ -155,6 +171,21 @@ class WebEditor:
                                           thread_name_prefix='web-editor')
         self.images: Dict[str, Optional[np.ndarray]] = {
             'input': None, 'mask': None, 'target': None, 'output': None}
+        self.warm = None
+        if warm:
+            self.warm = self._worker.submit(self._warm_up)
+            self.warm.add_done_callback(_report_failure)
+
+    def _warm_up(self) -> float:
+        t0 = time.perf_counter()
+        with self.lock, torch.no_grad():
+            self.backend.editor.warm_start(block=True)
+        return (time.perf_counter() - t0) * 1e3
+
+    def join_warm(self) -> Optional[float]:
+        """Wait for the warm-up; its host ms (None without one), or its
+        error raised."""
+        return None if self.warm is None else self.warm.result()
 
     def close(self) -> None:
         self._worker.shutdown()
@@ -285,12 +316,12 @@ def build_web_editor(max_fe: float = 2.0, blending: bool = True,
                      target_path: Optional[str] = None) -> WebEditor:
     """The server's session as `main` builds it: Backend() (the full-width
     editor on `device`, the first CUDA device by default, booted from
-    model_trained/) behind a WebEditor, with the input and target photos
-    loaded when given."""
+    model_trained/) behind a WebEditor whose worker warms first, with the
+    input and target photos loaded when given (behind the warm-up)."""
     from ctrlhair_tpu_torch.pipeline.backend import Backend
     backend = Backend(maximum_value_fe=max_fe, blending=blending,
                       device=device)
-    editor = WebEditor(backend, maximum_value_fe=max_fe)
+    editor = WebEditor(backend, maximum_value_fe=max_fe, warm=True)
     if input_path:
         editor.load_input(read_rgb(input_path))
     if target_path:

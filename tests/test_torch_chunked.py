@@ -328,6 +328,42 @@ def test_state_updates_in_place(name):
     assert all(torch.equal(a, b) for a, b in zip(tensors, before))
 
 
+@pytest.mark.parametrize('name', ['shape', 'landmark', 'color_texture',
+                                  'rgb', 'curliness', 'face_parser', 'sean'])
+def test_fresh_leaves_drop_held_accumulators(name):
+    """_fresh_leaves, which ChunkRunner applies to the state's tensors
+    before it captures: a copy of the state taken with gradients on (the
+    caller's clone()) holds each parameter's gradient accumulator, on the
+    card one made on the default stream, which a captured backward must
+    not reach.  After it every tensor keeps its object, pointer and
+    values, each trainable leaf reaches an accumulator of its own and not
+    the copy's, and the next step equals a step without it bit for bit."""
+    from torch.autograd.graph import get_gradient_edge
+    state, step = tiny_trainers()[name]()
+    ref, ref_step = tiny_trainers()[name]()
+    state, _ = step(state)
+    ref, _ = ref_step(ref)
+    tensors = state.tensors()
+    ptrs = [t.data_ptr() for t in tensors]
+    copy = [t.clone() for t in tensors]
+    held = [(t, c.grad_fn.next_functions[0][0])
+            for t, c in zip(tensors, copy) if c.grad_fn is not None]
+    assert held and all(get_gradient_edge(t).node is node
+                        for t, node in held)
+    chunked._fresh_leaves(tensors)
+    assert all(a is b for a, b in zip(state.tensors(), tensors))
+    assert [t.data_ptr() for t in state.tensors()] == ptrs
+    assert all(torch.equal(t, c) for t, c in zip(tensors, copy))
+    for t, node in held:
+        assert t.is_leaf and t.requires_grad
+        assert get_gradient_edge(t).node is not node
+        assert node.variable is not t
+    state, _ = step(state)
+    ref, _ = ref_step(ref)
+    assert all(torch.equal(a, b) for a, b in zip(state.tensors(),
+                                                 ref.tensors()))
+
+
 def test_loss_schedule_device_tables():
     """The loss schedule's device tables give the host's weights, and a
     step moves Adam's count in place."""

@@ -3,9 +3,10 @@
 # multigrid blend, the float32 slice on the card against the same on the
 # CPU, and ChunkRunner's CUDA graphs against the same steps taken eagerly.
 # ChunkRunner runs the tiny shape, landmark, colour/texture, predictor,
-# face-parser and SEAN trainers and the face parser over a one-rank NCCL
-# group.  They skip without a CUDA device.  This file imports nothing of
-# JAX, so on a machine with a card and no JAX it runs without the suite's
+# face-parser and SEAN trainers, and the face parser over a one-rank NCCL
+# group, fresh and after eager steps whose tensors the caller copied.
+# They skip without a CUDA device.  This file imports nothing of JAX, so
+# on a machine with a card and no JAX it runs without the suite's
 # conftest:
 #     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 import copy
@@ -927,6 +928,56 @@ def test_chunked_graph_over_one_rank_nccl_group(card, tmp_path):
     finally:
         torch.backends.cudnn.deterministic = False
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('backend', ['nccl', None])
+def test_chunked_graph_after_eager_steps_over_nccl(card, tmp_path, backend):
+    """The face parser over a one-rank NCCL group (and, for comparison,
+    without a mesh): 3 eager steps, a copy of the state's tensors taken
+    as a caller takes one (clone(), gradients on) and kept, then
+    ChunkRunner.run steps 3 to 6 in chunks of 2 from that same state:
+    bit-identical to 6 eager steps from the same seed, the copy equal to
+    the state after 3 (deterministic cuDNN).
+
+    The copy keeps each parameter's gradient accumulator alive, made on
+    the legacy default stream.  Before ChunkRunner gave the state's leaves
+    a new autograd identity ahead of the warm-up, the NCCL case failed at
+    the capture's end, "CUDA error: operation failed due to a previous
+    error during capture" (cudaErrorStreamCaptureInvalidated), after
+    torch's warning that an AccumulateGrad node's stream does not match
+    its producer's; the case without a mesh passed (NVIDIA H100 80GB HBM3,
+    700 W, torch 2.11.0+cu128).  Both pass since, without the warning."""
+    import torch.distributed as dist
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    mesh = _one_rank_group(card, tmp_path, backend) if backend else None
+    k = 3
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr, ref, make_batch, _ = _tiny_bisenet_case(card, mesh)
+        for s in range(2 * k):
+            if s == k:
+                with torch.no_grad():
+                    at_k = [t.clone() for t in ref.tensors()]
+            ref, _ = tr.train_step(ref, make_batch(s))
+        tr, state, make_batch, _ = _tiny_bisenet_case(card, mesh)
+        for s in range(k):
+            state, _ = tr.train_step(state, make_batch(s))
+        copy = [t.clone() for t in state.tensors()]
+        assert any(c.grad_fn is not None for c in copy)
+        runner = ChunkRunner(tr.train_step, make_batch)
+        state, rows, trips = runner.run(state, k, 2 * k, chunk_size=2,
+                                        record_every=1)
+        assert runner.captures == 1 and trips == 0
+        assert state.step == 2 * k and [r['step'] for r in rows] == [3, 4, 5]
+        for a, b in zip(state.tensors(), ref.tensors()):
+            assert torch.equal(a, b)
+        for a, b in zip(copy, at_k):
+            assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if backend:
+            dist.destroy_process_group()
 
 
 @pytest.mark.cuda

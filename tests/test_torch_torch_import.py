@@ -355,14 +355,15 @@ def test_load_reference_tree(tiny_editor, tmp_path):
 
 
 def test_chunked_runner_loads_no_jax():
-    """training/chunked.py and what it imports load no module of JAX,
-    flax or the JAX package (a fresh interpreter's sys.modules after the
-    import; the static scan of every port file is in
-    tests/test_torch_checkpoint.py)."""
+    """training/chunked.py, pipeline/find_directions.py (the curation
+    entry point) and what they import load no module of JAX, flax or the
+    JAX package (a fresh interpreter's sys.modules after the imports; the
+    static scan of every port file is in tests/test_torch_checkpoint.py)."""
     import os
     import subprocess
     import sys
     code = ('import sys; import ctrlhair_tpu_torch.training.chunked; '
+            'import ctrlhair_tpu_torch.pipeline.find_directions; '
             'print(sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "ctrlhair_tpu")))')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
