@@ -37,12 +37,20 @@ from ctrlhair_tpu_torch.utils.color_stats import DistTranslation
 from ctrlhair_tpu_torch.utils.colorspace import hsv_to_rgb_u8, rgb_to_hsv_u8
 from ctrlhair_tpu_torch.utils.image import mask_to_rgb, write_rgb
 from ctrlhair_tpu_torch.utils.masks import one_hot_to_label
+from ctrlhair_tpu_torch.utils.profiling import span
 
 
 def _to_u8(img_f: torch.Tensor) -> torch.Tensor:
     """A render in [-1,1] -> uint8 (round to nearest, as the JAX Backend)."""
     return torch.clamp(torch.round(img_f.float() * 127.5 + 127.5), 0,
                        255).to(torch.uint8)
+
+
+def _readback(t: torch.Tensor) -> np.ndarray:
+    """A request's images (or mask) to the host: the request's one sync,
+    where the host waits out the device's lag."""
+    with span('readback'):
+        return t.cpu().numpy()
 
 
 def repo_path(rel: str) -> str:
@@ -203,28 +211,29 @@ class Backend:
     def output(self, target_latent: Optional[Latent] = None,
                feature=None) -> np.ndarray:
         """Render the edited image (ref: ui/backend.py:147-175)."""
-        if target_latent is not None and feature is None and self.blending:
-            # one tick: mask decode + render + blend, ONE host sync (the
-            # mask stays on the device)
-            face, flabel = self._input_batched()
-            out, mask = self.editor.output_refresh(
-                self.input_sean_code, target_latent, face, flabel)
-            self.cur_mask = mask[0]   # device tensor: lazy
-            return out[0].cpu().numpy()
-        if target_latent is None:
-            target_latent = self.cur_latent
-            target_mask = self._cur_mask_batched()
-        else:
-            target_mask = self.editor.decode_mask(target_latent.shape,
-                                                  target_latent.face)
-            self.cur_mask = target_mask[0]   # device tensor: lazy
-        img = self.editor.edit_render(self.input_sean_code, target_mask,
-                                      target_latent, feature)
-        if self.blending:
-            face, flabel = self._input_batched()
-            out = self.editor.blend(face, img, flabel, target_mask)
-            return out[0].cpu().numpy()
-        return _to_u8(img[0]).cpu().numpy()
+        with span('backend.output', images=1):
+            if target_latent is not None and feature is None and self.blending:
+                # one tick: mask decode + render + blend, ONE host sync (the
+                # mask stays on the device)
+                face, flabel = self._input_batched()
+                out, mask = self.editor.output_refresh(
+                    self.input_sean_code, target_latent, face, flabel)
+                self.cur_mask = mask[0]   # device tensor: lazy
+                return _readback(out[0])
+            if target_latent is None:
+                target_latent = self.cur_latent
+                target_mask = self._cur_mask_batched()
+            else:
+                target_mask = self.editor.decode_mask(target_latent.shape,
+                                                      target_latent.face)
+                self.cur_mask = target_mask[0]   # device tensor: lazy
+            img = self.editor.edit_render(self.input_sean_code, target_mask,
+                                          target_latent, feature)
+            if self.blending:
+                face, flabel = self._input_batched()
+                out = self.editor.blend(face, img, flabel, target_mask)
+                return _readback(out[0])
+            return _readback(_to_u8(img[0]))
 
     # --------------------------------------------------------------- edits
     def change_curliness(self, val: float) -> None:
@@ -324,7 +333,7 @@ class Backend:
     @property
     def cur_mask(self):
         if self._cur_mask_np is None and self._cur_mask_dev is not None:
-            self._cur_mask_np = self._cur_mask_dev.cpu().numpy()
+            self._cur_mask_np = _readback(self._cur_mask_dev)
         return self._cur_mask_np
 
     @cur_mask.setter
@@ -416,16 +425,17 @@ class Backend:
         latents: Latent with leading batch dim N -> [N, S, S, 3] uint8.
         """
         n = latents.texture.shape[0]
-        codes = self.input_sean_code.expand(n, -1, -1)
-        mask = self._cur_mask_batched().expand(n, -1, -1)
-        if self.blending:
-            face1, flabel1 = self._input_batched()
-            out = self.editor.output(codes, latents,
-                                     face1.expand(n, -1, -1, -1),
-                                     flabel1.expand(n, -1, -1), mask)
-            return out.cpu().numpy()
-        img = self.editor.edit_render(codes, mask, latents)
-        return _to_u8(img).cpu().numpy()
+        with span('backend.output_batch', images=n):
+            codes = self.input_sean_code.expand(n, -1, -1)
+            mask = self._cur_mask_batched().expand(n, -1, -1)
+            if self.blending:
+                face1, flabel1 = self._input_batched()
+                out = self.editor.output(codes, latents,
+                                         face1.expand(n, -1, -1, -1),
+                                         flabel1.expand(n, -1, -1), mask)
+                return _readback(out)
+            img = self.editor.edit_render(codes, mask, latents)
+            return _readback(_to_u8(img))
 
     def _input_batched(self):
         """Device-cached (face image, face label) batch-1 pair; invalidated
@@ -443,18 +453,19 @@ class Backend:
         (interpolate + render + blend, editor.output_sweep) — vs the
         reference's per-alpha backend calls.  Host traffic per sweep: the
         [N] alpha vector up, plus (optionally) one uint8 batch down."""
-        a = self._tensor(alphas)
-        l1 = l1.replace(face=self.cur_latent.face)
-        if self.blending:
-            face, flabel = self._input_batched()
-            out = self.editor.output_sweep(
-                self.input_sean_code, l1, l2, a, face, flabel,
-                self._cur_mask_batched())
-            return out.cpu().numpy() if readback else out
-        n = a.shape[0]
-        lats = latent_ops.interpolate(l1, l2, a[:, None])
-        lats = lats.map(lambda x: x.expand((n,) + tuple(x.shape[1:])))
-        return self.output_batch(lats)
+        with span('backend.sweep', images=len(alphas)):
+            a = self._tensor(alphas)
+            l1 = l1.replace(face=self.cur_latent.face)
+            if self.blending:
+                face, flabel = self._input_batched()
+                out = self.editor.output_sweep(
+                    self.input_sean_code, l1, l2, a, face, flabel,
+                    self._cur_mask_batched())
+                return _readback(out) if readback else out
+            n = a.shape[0]
+            lats = latent_ops.interpolate(l1, l2, a[:, None])
+            lats = lats.map(lambda x: x.expand((n,) + tuple(x.shape[1:])))
+            return self.output_batch(lats)
 
     def random_texture_sweep(self, n: int) -> np.ndarray:
         """n random texture samples rendered in one batch."""

@@ -21,6 +21,10 @@
 # the JAX editor's warm start does: there it loads the compiled programs,
 # here it builds and loads the kernels' libraries, lets cuDNN pick its
 # algorithms and grows the caching allocator before the first request.
+# The stages of an edit, _edit_render, _decode_mask and _blend, each open a
+# span (utils/profiling.py: render, decode_mask, blend) that a profiler or
+# recording() sees; a stage replayed as a CUDA graph keeps its span around
+# the replay.
 
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from ctrlhair_tpu_torch.pipeline.latent import interpolate as \
 from ctrlhair_tpu_torch.utils.colorspace import rgb_to_hsv_u8
 from ctrlhair_tpu_torch.utils.masks import (
     label_to_one_hot, one_hot_to_label, split_hair_face)
+from ctrlhair_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -210,7 +215,8 @@ class HairEditor(nn.Module):
                 'hair_feature': hair_feature, 'latent': latent}
 
     def _decode_mask(self, shape_code, face_code) -> torch.Tensor:
-        return one_hot_to_label(self.shape.decode(shape_code, face_code))
+        with span('decode_mask'):
+            return one_hot_to_label(self.shape.decode(shape_code, face_code))
 
     def _encode_shape(self, label: torch.Tensor):
         """[N,S,S] label -> (shape_code [N,16], face_code [N,1024]) f32."""
@@ -251,20 +257,22 @@ class HairEditor(nn.Module):
 
     def _blend(self, face_img_u8, gen_img_f, face_label, target_label):
         """Poisson-blend the generated hair onto the original face."""
-        out = poisson_blend_fused(
-            *self._blend_inputs(face_img_u8, gen_img_f, face_label,
-                                target_label),
-            iterations=self.cfg.poisson_iterations)
-        return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+        with span('blend'):
+            out = poisson_blend_fused(
+                *self._blend_inputs(face_img_u8, gen_img_f, face_label,
+                                    target_label),
+                iterations=self.cfg.poisson_iterations)
+            return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
     def _edit_render(self, sean_codes, label, latent: Latent,
                      feature: Optional[torch.Tensor] = None):
         """latent -> feature -> hair-code swap -> SEAN render (no blend)."""
-        if feature is None:
-            feature = self._feature(latent)
-        codes = sean_codes.clone()
-        codes[:, HAIR_IDX] = feature.to(codes.dtype)
-        return self._render(codes, label)
+        with span('render'):
+            if feature is None:
+                feature = self._feature(latent)
+            codes = sean_codes.clone()
+            codes[:, HAIR_IDX] = feature.to(codes.dtype)
+            return self._render(codes, label)
 
     def _output(self, sean_codes, latent: Latent, face_img_u8, face_label,
                 target_label):

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ctrlhair_tpu_torch.utils.image import encode_png, read_rgb
+from ctrlhair_tpu_torch.utils.profiling import span
 
 SLIDER_SPECS: List[Tuple[str, str, int]] = [
     # (group, label, index) — labels follow ref ui/frontend_demo.py:104-109
@@ -46,15 +47,17 @@ def value_to_slider(value: float) -> int:
 
 
 def apply_slider(backend, group: str, idx: int, value: float) -> None:
-    """Dispatch one slider move to the Backend (ref :233-259)."""
-    if group == 'color':
-        backend.change_color(value, idx)
-    elif group == 'curliness':
-        backend.change_curliness(value)
-    elif group == 'texture':
-        backend.change_texture(value, idx)
-    elif group == 'shape':
-        backend.change_shape(value, idx)
+    """Dispatch one slider move to the Backend (ref :233-259); a request
+    root of the program's spans (a shape move decodes its mask here)."""
+    with span('slider.apply'):
+        if group == 'color':
+            backend.change_color(value, idx)
+        elif group == 'curliness':
+            backend.change_curliness(value)
+        elif group == 'texture':
+            backend.change_texture(value, idx)
+        elif group == 'shape':
+            backend.change_shape(value, idx)
 
 
 def read_sliders(backend) -> Dict[Tuple[str, int], float]:

@@ -72,16 +72,6 @@ def test_psnr_floor_of_equal_images():
 
 
 # --------------------------------------------------------------- profiling
-def test_timer_prints_and_measures(capsys):
-    with profiling.Timer('sum') as t:
-        torch.arange(1000).sum()
-    assert t.elapsed > 0
-    assert '[timer] sum:' in capsys.readouterr().out
-    with profiling.Timer('quiet', verbose=False, sync=False) as q:
-        pass
-    assert q.elapsed >= 0 and capsys.readouterr().out == ''
-
-
 def test_benchmark_keys_and_order():
     calls = []
     res = profiling.benchmark(lambda n: calls.append(n), 3, iters=5, warmup=2)
