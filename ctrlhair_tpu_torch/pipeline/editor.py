@@ -24,7 +24,13 @@
 # The stages of an edit, _edit_render, _decode_mask and _blend, each open a
 # span (utils/profiling.py: render, decode_mask, blend) that a profiler or
 # recording() sees; a stage replayed as a CUDA graph keeps its span around
-# the replay.
+# the replay.  On a card the render is one: _edit_render runs its body
+# through pipeline/stage_graph.StageGraphs, which captures it at the second
+# call of each input signature (batch size, feature given or not, the
+# inputs' layouts) and replays it after, its span's `graph` attribute saying
+# which.  A cast or move of the editor (_apply) or
+# load_state_dict(assign=True) rebinds the tensors the graphs read and drops
+# them; the models' compute dtypes are part of the signature.
 
 from __future__ import annotations
 
@@ -52,10 +58,15 @@ from ctrlhair_tpu_torch.ops.resize import resize_bilinear_nhwc, resize_nearest
 from ctrlhair_tpu_torch.pipeline.latent import Latent
 from ctrlhair_tpu_torch.pipeline.latent import interpolate as \
     latent_interpolate
+from ctrlhair_tpu_torch.pipeline.stage_graph import StageGraphs
 from ctrlhair_tpu_torch.utils.colorspace import rgb_to_hsv_u8
 from ctrlhair_tpu_torch.utils.masks import (
     label_to_one_hot, one_hot_to_label, split_hair_face)
 from ctrlhair_tpu_torch.utils.profiling import span
+
+
+# the fields of a Latent that _feature reads
+_FEATURE_FIELDS = ('hsv', 'pca_std', 'curliness', 'texture')
 
 
 def resolve_device(device=None) -> torch.device:
@@ -98,6 +109,7 @@ class HairEditor(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.compute_dtype]
+        self._render_graphs = StageGraphs('render', self.device)
         code_dim = cfg.sean.style_dim
         with torch.device(self.device):
             self.sean = SEAN(cfg.sean, dtype=self.dtype)
@@ -128,6 +140,23 @@ class HairEditor(nn.Module):
         self._warm_threads = []
 
     # ------------------------------------------------------------------ init
+    def _apply(self, *args, **kwargs):
+        # every cast or move (.to(), .cuda(), .half(), ...) rebinds the
+        # tensors the captured renders read
+        graphs = self.__dict__.get('_render_graphs')
+        if graphs is not None:
+            graphs.clear()
+        return super()._apply(*args, **kwargs)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """nn.Module's; assign=True rebinds the tensors, and drops the
+        captured renders."""
+        if assign:
+            self._render_graphs.clear()
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
     def init_params(self, seed: int = 0) -> None:
         """Draw every parameter from its flax initialiser with one seeded
         generator (the numbers differ from JAX's, the distributions do
@@ -266,13 +295,26 @@ class HairEditor(nn.Module):
 
     def _edit_render(self, sean_codes, label, latent: Latent,
                      feature: Optional[torch.Tensor] = None):
-        """latent -> feature -> hair-code swap -> SEAN render (no blend)."""
-        with span('render'):
-            if feature is None:
-                feature = self._feature(latent)
-            codes = sean_codes.clone()
-            codes[:, HAIR_IDX] = feature.to(codes.dtype)
-            return self._render(codes, label)
+        """latent -> feature -> hair-code swap -> SEAN render (no blend);
+        on a card a CUDA graph's replay from the second call of its input
+        signature on."""
+        given = ((feature,) if feature is not None else
+                 tuple(getattr(latent, f) for f in _FEATURE_FIELDS))
+        return self._render_graphs(
+            self._edit_render_body, (sean_codes, label) + given,
+            key=(self.sean.generator.dtype, self.ct_gen.dtype))
+
+    def _edit_render_body(self, sean_codes, label, *given):
+        """_edit_render on tensors alone: `given` is the feature, or the
+        latent's _FEATURE_FIELDS."""
+        if len(given) == 1:
+            feature = given[0]
+        else:
+            feature = self._feature(Latent(
+                **dict(zip(_FEATURE_FIELDS, given)), shape=None, face=None))
+        codes = sean_codes.clone()
+        codes[:, HAIR_IDX] = feature.to(codes.dtype)
+        return self._render(codes, label)
 
     def _output(self, sean_codes, latent: Latent, face_img_u8, face_label,
                 target_label):
@@ -398,7 +440,9 @@ class HairEditor(nn.Module):
         of jobs, output, output_refresh and decode_mask for each batch
         size, then parse and analyze_tail at batch 1 (the interactive
         analysis) and analyze at larger batches.  The stages run under
-        inference mode, so no parameter, buffer or session changes.
+        inference mode, so no parameter, buffer or session changes.  On a
+        card output renders a batch size eagerly and output_refresh
+        captures its render's CUDA graph, so the graphs are captured here.
 
         cuDNN keeps part of its state per thread, so a server warms the
         thread that serves (ui/web.WebEditor).  With block=False the jobs

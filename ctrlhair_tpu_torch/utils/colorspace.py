@@ -6,7 +6,13 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+# (r, g, b) take these entries of [v, p, q, t] in sectors 0..5 (cv2's
+# sector_data)
+_SECTORS = [[0, 3, 1], [2, 0, 1], [1, 0, 3], [1, 2, 0], [3, 1, 0], [0, 1, 2]]
 
 
 def rgb_to_hsv_u8(rgb: torch.Tensor) -> torch.Tensor:
@@ -29,6 +35,15 @@ def rgb_to_hsv_u8(rgb: torch.Tensor) -> torch.Tensor:
     return torch.stack([h, s, v], dim=-1).to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
+def _sector_table(device: torch.device) -> torch.Tensor:
+    # made once a device, outside inference mode (as ops/resize.py keeps
+    # its index tensors): a copy from the host on every call would stop a
+    # CUDA graph's capture of the render
+    return torch.tensor(_SECTORS, device=device)
+
+
 def hsv_to_rgb_u8(hsv: torch.Tensor) -> torch.Tensor:
     """[..., 3] uint8 HSV -> [..., 3] uint8 RGB (cv2.COLOR_HSV2RGB)."""
     hsv = hsv.to(torch.float32)
@@ -40,9 +55,5 @@ def hsv_to_rgb_u8(hsv: torch.Tensor) -> torch.Tensor:
     tab = torch.stack([v, v * (1.0 - s), v * (1.0 - s * frac),
                        v * (1.0 - s * (1.0 - frac))], dim=-1)
     sector = torch.remainder(sector.to(torch.int64), 6)
-    # (r, g, b) take these tab entries in sectors 0..5 (cv2's sector_data)
-    table = torch.tensor([[0, 3, 1], [2, 0, 1], [1, 0, 3],
-                          [1, 2, 0], [3, 1, 0], [0, 1, 2]],
-                         device=hsv.device)
-    rgb = torch.gather(tab, -1, table[sector])
+    rgb = torch.gather(tab, -1, _sector_table(hsv.device)[sector])
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)

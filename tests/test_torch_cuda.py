@@ -1,7 +1,9 @@
 # Card-only tests of the PyTorch port: the masked-CG and UV-rasteriser CUDA
 # kernels against their plain versions, the warp's kernel route, the
 # multigrid blend, the float32 slice on the card against the same on the
-# CPU, and ChunkRunner's CUDA graphs against the same steps taken eagerly.
+# CPU, ChunkRunner's CUDA graphs against the same steps taken eagerly, and
+# the editor's render replayed as a CUDA graph against its eager render
+# (pipeline/stage_graph.py), bit for bit.
 # ChunkRunner runs the tiny shape, landmark, colour/texture, predictor,
 # face-parser and SEAN trainers, and the face parser over a one-rank NCCL
 # group, fresh and after eager steps whose tensors the caller copied.
@@ -1058,3 +1060,207 @@ def test_conv_transpose_on_card_takes_deterministic_algorithms(card):
     for got, ref in zip(runs[1], runs[0]):
         scale = float(ref.abs().max())
         assert float((got.double().cpu() - ref).abs().max()) <= 1e-5 * scale
+
+
+# ------------------------------------------------ the render's CUDA graphs
+@pytest.fixture(scope='module')
+def full_editor():
+    """The full-width editor (PipelineConfig(): bfloat16 SEAN at 256 px),
+    one for the module's render-graph tests."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return HairEditor(C.PipelineConfig(), device='cuda', seed=1)
+
+
+def render_case(editor, n, seed, expand=False):
+    """(codes, label, latent) of a batch of n on the card, seeded; expand:
+    codes and label as one row expanded to n, as output_sweep passes
+    them."""
+    from ctrlhair_tpu_torch.constants import NUM_CLASSES
+    from ctrlhair_tpu_torch.pipeline.latent import Latent
+    cfg, dev = editor.cfg, editor.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = 1 if expand else n
+    codes = torch.randn(rows, NUM_CLASSES, cfg.sean.style_dim, generator=g,
+                        device=dev)
+    label = torch.randint(0, NUM_CLASSES, (rows,) + (cfg.edit_size,) * 2,
+                          generator=g, device=dev, dtype=torch.int32)
+    if expand:
+        codes, label = codes.expand(n, -1, -1), label.expand(n, -1, -1)
+    r = lambda d: torch.randn(n, d, generator=g, device=dev)
+    lat = Latent(hsv=torch.rand(n, 3, generator=g, device=dev) * 170,
+                 pca_std=r(1).abs(), curliness=r(
+                     cfg.color_texture.curliness_dim),
+                 texture=r(cfg.color_texture.noise_dim),
+                 shape=r(cfg.shape.hair_dim), face=r(cfg.shape.face_dim))
+    return codes, label, lat
+
+
+def graph_modes(editor, fn):
+    """fn() under profiling.recording() -> (its result, the `graph`
+    attribute of each render span it opened)."""
+    from ctrlhair_tpu_torch.utils import profiling
+    profiling.clear()
+    with profiling.recording():
+        out = fn()
+    modes = [r.attrs['graph'] for r in profiling.records()
+             if r.name == 'render']
+    profiling.clear()
+    return out, modes
+
+
+def eager_render(editor, codes, label, lat):
+    from ctrlhair_tpu_torch.pipeline.editor import _FEATURE_FIELDS
+    with torch.inference_mode():
+        return editor._edit_render_body(
+            codes, label, *(getattr(lat, f) for f in _FEATURE_FIELDS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,expand', [(1, False), (8, True)])
+def test_render_graph_replay_equals_eager(card, full_editor, n, expand):
+    """At batch 1, and at batch 8 from expanded codes and label: the
+    eager first call, the capture's replay and later replays (other inputs
+    too) are the eager render bit for bit."""
+    ed = full_editor
+    ed._render_graphs.clear()
+    for step, seed in enumerate((1, 1, 1, 2, 3)):
+        codes, label, lat = render_case(ed, n, seed, expand)
+        got, modes = graph_modes(ed, lambda: ed.edit_render(codes, label,
+                                                            lat))
+        assert modes == [(0, 2, 1, 1, 1)[step]]
+        assert torch.equal(got, eager_render(ed, codes, label, lat))
+
+
+@pytest.mark.cuda
+def test_output_after_replay_equals_eager(card, full_editor):
+    """The full output (render, then the blend with K1) through the
+    render's replay equals the output with the render run eagerly."""
+    ed = full_editor
+    ed._render_graphs.clear()
+    codes, label, lat = render_case(ed, 1, 4)
+    target = render_case(ed, 1, 5)[1]
+    face = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8,
+                         generator=torch.Generator(device=card).manual_seed(6),
+                         device=card)
+    outs, modes = graph_modes(ed, lambda: [
+        ed.output(codes, lat, face, label, target) for _ in range(3)])
+    assert modes == [0, 2, 1]
+    ed._render_graphs.enabled = False
+    try:
+        want = ed.output(codes, lat, face, label, target)
+    finally:
+        ed._render_graphs.enabled = True
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_render_replay_follows_loaded_weights(card, full_editor):
+    """load_state_dict copies in place: the graph captured under one set of
+    weights replays under fresh ones and equals their eager render."""
+    ed = full_editor
+    ed._render_graphs.clear()
+    saved = {k: v.clone() for k, v in ed.state_dict().items()}
+    codes, label, lat = render_case(ed, 1, 7)
+    try:
+        first, modes = graph_modes(ed, lambda: [
+            ed.edit_render(codes, label, lat) for _ in range(3)])
+        assert modes == [0, 2, 1]
+        fresh = HairEditor(ed.cfg, device=card, seed=2).state_dict()
+        ed.load_state_dict(fresh)
+        del fresh
+        got, modes = graph_modes(ed, lambda: ed.edit_render(codes, label,
+                                                            lat))
+        assert modes == [1] and ed._render_graphs.captures >= 1
+        want = eager_render(ed, codes, label, lat)
+        assert torch.equal(got, want) and not torch.equal(got, first[-1])
+    finally:
+        ed.load_state_dict(saved)
+
+
+@pytest.mark.cuda
+def test_render_replays_do_not_alias(card, full_editor):
+    """Two consecutive replays hand back two tensors: the first keeps its
+    values when the second is rendered from other inputs."""
+    ed = full_editor
+    ed._render_graphs.clear()
+    a_in, b_in = render_case(ed, 1, 8), render_case(ed, 1, 9)
+    for _ in range(2):
+        ed.edit_render(*a_in)
+    a = ed.edit_render(*a_in)
+    a_copy = a.clone()
+    b, modes = graph_modes(ed, lambda: ed.edit_render(*b_in))
+    assert modes == [1]
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, a_copy) and not torch.equal(a, b)
+    assert torch.equal(b, eager_render(ed, *b_in))
+
+
+@pytest.mark.cuda
+def test_warm_thread_captures_while_the_caller_renders(card, monkeypatch):
+    """HairEditor(warm_batches=(1,)) warms, and captures, on a daemon
+    thread while this thread renders and outputs at batch 1: no error on
+    either thread, and every image equals the eager one."""
+    import threading
+    errors = []
+    monkeypatch.setattr(threading, 'excepthook',
+                        lambda args: errors.append(args.exc_value))
+    ed = HairEditor(C.PipelineConfig(), device=card, seed=1,
+                    warm_batches=(1,))
+    cases = [render_case(ed, 1, 20 + i) for i in range(6)]
+    face = torch.zeros((1, 256, 256, 3), dtype=torch.uint8, device=card)
+    got = []
+    for _ in range(4):
+        for codes, label, lat in cases:
+            got.append((ed.edit_render(codes, label, lat), codes, label,
+                        lat))
+            ed.output(codes, lat, face, label, label)
+    ed.join_warm()
+    torch.cuda.synchronize()
+    assert errors == []
+    assert ed._render_graphs.captures >= 1
+    for img, codes, label, lat in got:
+        assert torch.equal(img, eager_render(ed, codes, label, lat))
+
+
+@pytest.mark.cuda
+def test_render_replay_kernels_lie_in_the_render_span(card, full_editor):
+    """Under torch.profiler the replay's kernels are recorded one by one,
+    each launched (cudaGraphLaunch) inside the program's render span: as
+    many as the eager render's, give or take the input slots' copies."""
+    from torch.profiler import ProfilerActivity, profile
+    ed = full_editor
+    ed._render_graphs.clear()
+    case = render_case(ed, 1, 10)
+
+    def kernels_in_render(call):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        spans, launch, kernels = [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != torch.autograd.DeviceType.CPU:
+                if not e.is_user_annotation() and not e.name().startswith(
+                        ('Memcpy', 'Memset')):
+                    kernels.append(e.correlation_id())
+            elif e.is_user_annotation():
+                if e.name() == 'ctrlhair.render':
+                    spans.append((e.start_ns(),
+                                  e.start_ns() + e.duration_ns()))
+            elif e.name().startswith('cu'):
+                launch[e.correlation_id()] = (e.name(), e.start_ns())
+        assert len(spans) == 1
+        inside = [launch[c] for c in kernels if c in launch
+                  and spans[0][0] <= launch[c][1] <= spans[0][1]]
+        return len(kernels), inside
+
+    n_eager, inside = kernels_in_render(lambda: ed.edit_render(*case))
+    assert n_eager > 100 and len(inside) == n_eager
+    ed.edit_render(*case)                           # the capture
+    n_replay, inside = kernels_in_render(lambda: ed.edit_render(*case))
+    assert len(inside) == n_replay
+    assert {name for name, _ in inside} & {'cudaGraphLaunch',
+                                           'cuGraphLaunch'}
+    assert abs(n_replay - n_eager) <= 7, (n_replay, n_eager)
