@@ -43,10 +43,10 @@ from typing import Callable, Hashable, Sequence, Tuple
 
 import torch
 
-from ctrlhair_tpu_torch.training.chunked import _fresh_memory
+from ctrlhair_tpu_torch.training.chunked import (  # noqa: F401
+    CAPTURE, EAGER, REPLAY, _fresh_memory)
 from ctrlhair_tpu_torch.utils.profiling import span
 
-EAGER, REPLAY, CAPTURE = 0, 1, 2
 MAX_GRAPHS = 4
 
 

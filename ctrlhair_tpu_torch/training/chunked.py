@@ -54,6 +54,15 @@
 # the host and cannot be captured: on the card a trainer whose mesh is
 # over gloo is refused (the mesh found through functools.partial and
 # functools.wraps to the bound method's trainer).
+#
+# Spans (utils/profiling.span, recorded only while a profiler runs or
+# inside recording()): `train.chunk` around each chunk, from its first
+# step's inputs to the host's read of its metrics, with the integer
+# attributes `steps` and `graph` (EAGER on the CPU, REPLAY, or CAPTURE for
+# a capture followed by its replays); `train.inputs` inside it around each
+# step's make_batch, make_draws and copies into the graph's slots.  On the
+# chunk that captures, the first step's copies follow the capture, outside
+# its `train.inputs`.  The spans launch nothing.
 
 from __future__ import annotations
 
@@ -64,7 +73,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ctrlhair_tpu_torch.utils.profiling import span
+
 WARMUP_STEPS = 2
+EAGER, REPLAY, CAPTURE = 0, 1, 2        # the `graph` attribute of a span
 
 
 def _flatten(tree) -> Tuple[list, tuple]:
@@ -228,7 +240,9 @@ class ChunkRunner:
     def _eager_chunk(self, state, step: int, n: int, extra, keys):
         rows = []
         for i in range(n):
-            state, metrics = self._call(state, self._inputs(step + i), extra)
+            with span('train.inputs'):
+                inputs = self._inputs(step + i)
+            state, metrics = self._call(state, inputs, extra)
             keys = keys or list(metrics)
             rows.append(_metric_row(metrics, keys))
         return state, keys, torch.stack(rows)
@@ -285,37 +299,59 @@ class ChunkRunner:
     def _graph_chunk(self, state, step: int, n: int, extra):
         """n steps through the runner's one graph, captured anew when the
         inputs' signatures or the pointers of the state's or the extra
-        arguments' tensors are not those it was captured for."""
+        arguments' tensors are not those it was captured for; -> (state,
+        keys, metric rows, REPLAY or CAPTURE)."""
         tensors = list(state.tensors())
-        inputs = self._inputs(step)
-        leaves, sig = _flatten(inputs)
         extra_t, extra_sig = _flatten(tuple(extra))
         extra_t += _module_tensors(tuple(extra))
-        key = (sig, extra_sig, [t.data_ptr() for t in tensors + extra_t])
-        if self._graph is None or self._graph.key != key:
+        ptrs = [t.data_ptr() for t in tensors + extra_t]
+        with span('train.inputs'):
+            inputs = self._inputs(step)
+            leaves, sig = _flatten(inputs)
+            key = (sig, extra_sig, ptrs)
+            g = self._graph
+            if g is not None and g.key == key:
+                self._step_t.fill_(step)
+                self._fill(g, leaves)
+        mode = REPLAY
+        if g is None or g.key != key:
             device = tensors[0].device
             if any(t.device != device for t in leaves):
                 raise ValueError('the batch and draws must lie on the '
                                  f'state\'s device, {device}')
             self._graph = None          # the old graph's memory freed first
-            self._graph = self._capture(state, tensors, inputs, extra, key)
-        g = self._graph
+            g = self._graph = self._capture(state, tensors, inputs, extra,
+                                            key)
+            mode = CAPTURE
+            self._step_t.fill_(step)
+            self._fill(g, leaves)
         buf = torch.empty((n, len(g.keys)), dtype=torch.float64,
                           device=g.row.device)
-        self._step_t.fill_(step)
         for i in range(n):
             if i:
-                leaves, got = _flatten(self._inputs(step + i))
-                if got != sig:
-                    raise ValueError(f'the batch or draws of step {step + i}'
-                                     ' differ in structure or shape from '
-                                     'the captured step\'s')
-            for slot, t in zip(g.slots, leaves):
-                slot.copy_(t, non_blocking=True)
+                with span('train.inputs'):
+                    leaves, got = _flatten(self._inputs(step + i))
+                    if got != sig:
+                        raise ValueError(f'the batch or draws of step '
+                                         f'{step + i} differ in structure or '
+                                         'shape from the captured step\'s')
+                    self._fill(g, leaves)
             g.graph.replay()
             buf[i].copy_(g.row)
         state.step = step + n
-        return state, g.keys, buf
+        return state, g.keys, buf, mode
+
+    @staticmethod
+    def _fill(g: _Graph, leaves) -> None:
+        """Copy one step's batch and draws into the graph's input slots."""
+        for slot, t in zip(g.slots, leaves):
+            slot.copy_(t, non_blocking=True)
+
+    @staticmethod
+    def _on_card(state) -> bool:
+        """Whether the steps run as the graph's replays (the state on a
+        card) or eagerly."""
+        return state.tensors()[0].device.type == 'cuda'
 
     # ----------------------------------------------------------------- run
     def run(self, state, start: int, stop: int, *, chunk_size: int = 256,
@@ -332,7 +368,7 @@ class ChunkRunner:
         if int(state.step) != start:
             raise ValueError(f'the state is at step {state.step}, the run '
                              f'starts at {start}')
-        on_card = state.tensors()[0].device.type == 'cuda'
+        on_card = self._on_card(state)
         if on_card and _over_gloo(_mesh_of(self.step_fn)):
             raise ValueError('ChunkRunner does not capture a step over a '
                              'gloo mesh: gloo\'s collectives run on the '
@@ -343,13 +379,16 @@ class ChunkRunner:
         step = start
         while step < stop:
             n = min(chunk_size, stop - step)
-            if on_card:
-                state, keys, ms = self._graph_chunk(state, step, n,
-                                                    extra_args)
-            else:
-                state, keys, ms = self._eager_chunk(state, step, n,
-                                                    extra_args, keys)
-            ms = ms.cpu()               # one host sync per chunk
+            with span('train.chunk', steps=n, graph=EAGER) as chunk:
+                if on_card:
+                    state, keys, ms, mode = self._graph_chunk(
+                        state, step, n, extra_args)
+                    if chunk is not None:
+                        chunk.attrs['graph'] = mode
+                else:
+                    state, keys, ms = self._eager_chunk(state, step, n,
+                                                        extra_args, keys)
+                ms = ms.cpu()           # one host sync per chunk
             if 'finite' in keys:
                 finite_trips += int(n - ms[:, keys.index('finite')].sum())
             values = ms.tolist()

@@ -871,6 +871,51 @@ def test_chunked_graph_on_card_equals_eager(card, which):
         torch.backends.cudnn.deterministic = False
 
 
+@pytest.mark.cuda
+def test_chunked_spans_on_card(card):
+    """ChunkRunner's spans on the card, 4 tiny shape steps in chunks of 2:
+    train.chunk with its steps, CAPTURE on the first chunk and REPLAY on
+    the second, one train.inputs a step inside its chunk; the rows and the
+    state bit-identical with the spans recorded and without (deterministic
+    cuDNN)."""
+    import contextlib
+    from ctrlhair_tpu_torch.training.chunked import (
+        CAPTURE, REPLAY, ChunkRunner)
+    from ctrlhair_tpu_torch.utils import profiling
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for record in (True, False):
+            step, state, make_batch, make_draws, _ = _tiny_case(card, 'shape')
+            runner = ChunkRunner(step, make_batch, make_draws=make_draws)
+            profiling.clear()
+            with profiling.recording() if record else \
+                    contextlib.nullcontext():
+                state, rows, _ = runner.run(state, 0, 4, chunk_size=2,
+                                            record_every=1)
+            spans = [r for r in profiling.records()
+                     if r.name.startswith('train.')]
+            runs.append((state, rows, spans))
+        profiling.clear()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (state, rows, spans), (plain, plain_rows, none) = runs
+    assert not none
+    chunks = sorted((r for r in spans if r.name == 'train.chunk'),
+                    key=lambda r: r.start_ns)
+    assert [c.attrs for c in chunks] == [{'steps': 2, 'graph': CAPTURE},
+                                         {'steps': 2, 'graph': REPLAY}]
+    for c in chunks:
+        inputs = [r for r in spans
+                  if r.name == 'train.inputs' and r.parent == c.id]
+        assert len(inputs) == 2
+        assert all(c.start_ns <= r.start_ns <= r.end_ns <= c.end_ns
+                   for r in inputs)
+    assert rows == plain_rows
+    for a, b in zip(state.tensors(), plain.tensors()):
+        assert torch.equal(a, b)
+
+
 def _chunked_against_eager(card, which, make=None):
     from ctrlhair_tpu_torch.training.chunked import ChunkRunner
     nan_at = 3 if which == 'shape' else None
