@@ -7,7 +7,10 @@
 #   * decode = SPADE/ACE generator; the 19 per-region fc_mu linears are one
 #     stacked [19,D,D] einsum, and the style convs conv(one_hot (x) mu) are
 #     folded through the 19 region vectors (exact by linearity): a grouped
-#     conv of the 19-channel one-hot with per-sample kernels K @ mu.
+#     conv of the 19-channel one-hot with per-sample kernels K @ mu, whose
+#     weight gradient is one batched GEMM of the output gradient with the
+#     one-hot's 3x3 columns (_StyleConv): at the training step's widths a
+#     third of the time of cuDNN's grouped weight-gradient kernel.
 # Train mode (layers.set_train, as the SEAN trainer sets it): the
 # 'syncbatch' parameter-free norm takes the batch's statistics and updates
 # its running ones by flax's rule; ACE noise, with cfg.use_ace_noise, is an
@@ -34,6 +37,7 @@ from ctrlhair_tpu_torch.models.layers import (
 from ctrlhair_tpu_torch.ops.resize import (
     downsample_label_pyramid, resize_nearest, upsample2x_nearest)
 from ctrlhair_tpu_torch.utils.masks import label_to_one_hot
+from ctrlhair_tpu_torch.utils.profiling import span
 
 
 def _one_hot_nchw(label: torch.Tensor, num_classes: int,
@@ -175,21 +179,44 @@ class ACE(nn.Module):
         constant per region, so the 3x3 kernel folds through the region
         vectors into a per-sample [C,R,3,3] kernel applied to the one-hot."""
         cd = self.dtype
-        n, r, h, w = seg.shape
         weight = conv.conv.weight.to(cd)                   # [C,D,3,3]
         c = weight.shape[0]
         folded = torch.einsum('cdyx,nrd->ncryx', weight, mu)
-        x = seg.to(cd).reshape(1, n * r, h, w)
-        if h * w == 1:
-            # on 1x1 maps the reshape is a view whose strides read as
-            # channels-last, and the CPU's float64 convolution (slow_conv2d)
-            # then refuses its own weight gradient; larger maps are copied
-            # by the reshape
-            x = x.clone(memory_format=torch.contiguous_format)
-        out = F.conv2d(x, folded.reshape(n * c, r, 3, 3), padding=1,
-                       groups=n)
-        return out.reshape(n, c, h, w) + conv.conv.bias.to(cd).view(1, c,
-                                                                      1, 1)
+        out = _StyleConv.apply(seg.to(cd), folded)
+        return out + conv.conv.bias.to(cd).view(1, c, 1, 1)
+
+
+class _StyleConv(torch.autograd.Function):
+    """seg [N,R,H,W] convolved with its own sample's kernel of folded
+    [N,C,R,3,3], padding 1, as one grouped conv over the batch as channels;
+    -> [N,C,H,W].  The folded kernel's gradient is one batched GEMM: for
+    sample n, grad[n] [C,HW] times the 3x3 columns of seg[n] [HW,R*9]
+    (F.unfold's (r, ky, kx) order, the kernel's).  The one-hot takes no
+    gradient.  The GEMM follows the matmul TF32 setting and adds with no
+    atomics, so its bits repeat.  Each backward opens the span
+    `style_wgrad` (n, c, hw); without gradients (the editor's render) only
+    the grouped conv runs."""
+
+    @staticmethod
+    def forward(ctx, seg: torch.Tensor, folded: torch.Tensor
+                ) -> torch.Tensor:
+        assert not ctx.needs_input_grad[0], 'the one-hot takes no gradient'
+        ctx.save_for_backward(seg)
+        n, r, h, w = seg.shape
+        c = folded.shape[1]
+        out = F.conv2d(seg.reshape(1, n * r, h, w),
+                       folded.reshape(n * c, r, 3, 3), padding=1, groups=n)
+        return out.reshape(n, c, h, w)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        seg, = ctx.saved_tensors
+        n, r, h, w = seg.shape
+        c = grad.shape[1]
+        with span('style_wgrad', n=n, c=c, hw=h * w):
+            cols = F.unfold(seg, 3, padding=1)             # [N,R*9,HW]
+            g = torch.bmm(grad.reshape(n, c, h * w), cols.transpose(1, 2))
+        return None, g.view(n, c, r, 3, 3)
 
 
 class SPADEResnetBlock(nn.Module):

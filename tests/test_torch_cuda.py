@@ -1107,6 +1107,75 @@ def test_conv_transpose_on_card_takes_deterministic_algorithms(card):
         assert float((got.double().cpu() - ref).abs().max()) <= 1e-5 * scale
 
 
+class _StyleWgradState:
+    """A ChunkRunner state: the folded kernel and the gradient last taken."""
+
+    def __init__(self, folded):
+        self.step = 0
+        self.folded = folded
+        self.grad = torch.zeros_like(folded)
+
+    def tensors(self):
+        return [self.folded, self.grad]
+
+
+@pytest.mark.cuda
+def test_style_conv_weight_gradient_on_card(card):
+    """The folded style conv's weight gradient (models/sean._StyleConv) at
+    up_2's widths (N=4, C=256, 128x128, float32, TF32 off): within 1e-5 of
+    a float64 reference, bit-identical over two runs, equal inside
+    ChunkRunner's capture and replay and eagerly, and its backward launches
+    no cuDNN FFT kernel (cf32 GEMM or fft2d)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ctrlhair_tpu_torch.models.sean import _StyleConv
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    from ctrlhair_tpu_torch.utils.masks import label_to_one_hot
+    n, c, r, s = 4, 256, 19, 128
+    gen = torch.Generator(device=card).manual_seed(20)
+
+    def batch(step):
+        g = torch.Generator(device=card).manual_seed(100 + step)
+        lab = torch.randint(0, r, (n, s, s), generator=g, device=card)
+        return {'seg': label_to_one_hot(lab, r).permute(0, 3, 1, 2),
+                'go': torch.randn((n, c, s, s), generator=g, device=card)}
+
+    def wgrad(folded, b):
+        y = _StyleConv.apply(b['seg'], folded)
+        return torch.autograd.grad(y, folded, b['go'])[0]
+
+    folded = torch.randn((n, c, r, 3, 3), generator=gen, device=card,
+                         requires_grad=True)
+    b0 = batch(0)
+    got = wgrad(folded, b0)
+    assert torch.equal(got, wgrad(folded, b0))
+    cols = torch.nn.functional.unfold(b0['seg'].double(), 3, padding=1)
+    ref = torch.einsum('nchw,nkhw->nck', b0['go'].double(),
+                       cols.view(n, r * 9, s, s)).view(n, c, r, 3, 3)
+    scale = float(ref.abs().max())
+    assert float((got.double() - ref).abs().max()) <= 1e-5 * scale
+
+    def step(state, b):
+        state.grad.copy_(wgrad(state.folded, b))
+        state.step += 1
+        return state, {'sum': state.grad.sum()}
+
+    state = _StyleWgradState(folded)
+    runner = ChunkRunner(step, batch)
+    for k in range(3):
+        state, _, _ = runner.run(state, k, k + 1, chunk_size=1)
+        assert torch.equal(state.grad, wgrad(state.folded, batch(k)))
+    assert runner.captures == 1
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wgrad(folded, b0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names
+    assert not [k for k in names if 'cf32' in k or 'fft2d' in k.lower()]
+
+
 # ------------------------------------------------ the render's CUDA graphs
 @pytest.fixture(scope='module')
 def full_editor():
