@@ -15,10 +15,12 @@
 # The signature is read off the call: each input's shape, strides, dtype and
 # device, whether inference mode is on, and a key of the owner's (the
 # models' compute dtypes).  The first call with a signature runs eagerly,
-# which lets cuDNN and cuBLAS choose their algorithms.  The second warms up once more
-# on a side stream and captures, with training/chunked.ChunkRunner's
-# hygiene (cuBLAS's workspaces dropped before and after); that call and
-# every later one replay.  At most MAX_GRAPHS graphs are kept, the least
+# which lets cuDNN and cuBLAS choose their algorithms.  The second captures
+# through utils/cuda_graphs.capture, which warms up once more on a side
+# stream and keeps the capture's memory hygiene (cuBLAS's workspaces dropped
+# before and after); that call and every later one replay.  This module owns
+# the cache's policy: the signatures, the input slots, the bound and the
+# lock.  At most MAX_GRAPHS graphs are kept, the least
 # recently used evicted first, all in one private memory pool.  A lock
 # serialises capture and replay, and a capture runs with
 # capture_error_mode='thread_local', so another thread may run eagerly
@@ -28,7 +30,7 @@
 #
 # Each call opens the stage's span (utils/profiling.span) around the eager
 # run or the replay, with the integer attribute `graph`: EAGER, REPLAY, or
-# CAPTURE for a capture followed by its replay.
+# CAPTURE for a capture followed by its replay (utils/cuda_graphs).
 #
 # A graph reads the owner's parameters and buffers at the addresses they
 # had when it was captured, so values copied into them in place
@@ -37,14 +39,15 @@
 
 from __future__ import annotations
 
+import functools
 import threading
 from collections import OrderedDict
 from typing import Callable, Hashable, Sequence, Tuple
 
 import torch
 
-from ctrlhair_tpu_torch.training.chunked import (  # noqa: F401
-    CAPTURE, EAGER, REPLAY, _fresh_memory)
+from ctrlhair_tpu_torch.utils import cuda_graphs
+from ctrlhair_tpu_torch.utils.cuda_graphs import CAPTURE, EAGER, REPLAY
 from ctrlhair_tpu_torch.utils.profiling import span
 
 MAX_GRAPHS = 4
@@ -143,21 +146,12 @@ class StageGraphs:
     def _capture(self, fn: Callable, inputs) -> _Graph:
         """Warm fn up on a side stream over the new input slots, then
         capture it over them into the shared pool."""
-        device = self.device
         slots = _Slots(inputs)
-        with torch.cuda.device(device):
-            _fresh_memory(device)
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                fn(*slots.views)
-            torch.cuda.current_stream(device).wait_stream(side)
-            _fresh_memory(device)
+        with torch.cuda.device(self.device):
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode='thread_local'):
-                out = fn(*slots.views)
-            _fresh_memory(device)
+            call = functools.partial(fn, *slots.views)
+            graph, out = cuda_graphs.capture(
+                self.device, call, call, pool=self._pool,
+                capture_error_mode='thread_local')
         return _Graph(graph, slots, out)

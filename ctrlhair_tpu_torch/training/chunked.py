@@ -37,8 +37,12 @@
 # caller still holds copies of: before the warm-up each trainable leaf
 # gets a new autograd identity over the same storage (_fresh_leaves), so
 # that the capture's backward meets no gradient accumulator made earlier
-# on the default stream.  The runner holds one
-# graph, which serves every chunk, the remainder included; it is captured
+# on the default stream.  The capture's sequence (the warm-up on a side
+# stream, the memory hygiene around it) is utils/cuda_graphs.capture's; this
+# module owns what the step needs of it: the input slots, the step tensor,
+# the state saved and restored (on the warm-up's stream, which the capture
+# waits for), the fresh leaves.  The runner holds one graph, which serves
+# every chunk, the remainder included; it is captured
 # anew when the structure or shapes of the batch and draws, or the tensors
 # of the state or of the extra arguments (a module's parameters and
 # buffers among them), change.  A capture or replay that fails raises:
@@ -58,25 +62,26 @@
 # Spans (utils/profiling.span, recorded only while a profiler runs or
 # inside recording()): `train.chunk` around each chunk, from its first
 # step's inputs to the host's read of its metrics, with the integer
-# attributes `steps` and `graph` (EAGER on the CPU, REPLAY, or CAPTURE for
-# a capture followed by its replays); `train.inputs` inside it around each
-# step's make_batch, make_draws and copies into the graph's slots.  On the
-# chunk that captures, the first step's copies follow the capture, outside
-# its `train.inputs`.  The spans launch nothing.
+# attributes `steps` and `graph` (utils/cuda_graphs: EAGER on the CPU,
+# REPLAY, or CAPTURE for a capture followed by its replays); `train.inputs`
+# inside it around each step's make_batch, make_draws and copies into the
+# graph's slots.  On the chunk that captures, the first step's copies
+# follow the capture, outside its `train.inputs`.  The spans launch
+# nothing.
 
 from __future__ import annotations
 
-import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ctrlhair_tpu_torch.utils import cuda_graphs
+from ctrlhair_tpu_torch.utils.cuda_graphs import CAPTURE, EAGER, REPLAY
 from ctrlhair_tpu_torch.utils.profiling import span
 
 WARMUP_STEPS = 2
-EAGER, REPLAY, CAPTURE = 0, 1, 2        # the `graph` attribute of a span
 
 
 def _flatten(tree) -> Tuple[list, tuple]:
@@ -145,23 +150,6 @@ def _fresh_leaves(tensors) -> None:
                      else t.detach().requires_grad_())
             fresh.__dict__.update(t.__dict__)
             torch.utils.swap_tensors(t, fresh)
-
-
-def _fresh_memory(device) -> None:
-    """Called before the warm-up, before the capture and after it.  cuBLAS
-    keeps a workspace per stream; one made during a capture lies in that
-    graph's private pool, and once the graph is freed (a recapture, a new
-    runner) the next capture or eager step would still write to it while
-    the allocator hands the same memory to other tensors: the workspaces
-    are dropped, as torch.compile's CUDA graphs drop them.  A SEANConfig()
-    step captured after another graph of it had been freed stood 0.0183
-    from its eager loop with deterministic cuDNN until they were.  Garbage
-    is collected too, so that an earlier step's autograd graph that is no
-    longer referenced lets go of its gradient accumulators."""
-    torch.cuda.synchronize(device)
-    torch._C._cuda_clearCublasWorkspaces()
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def _metric_row(metrics: Dict[str, torch.Tensor], keys) -> torch.Tensor:
@@ -251,7 +239,7 @@ class ChunkRunner:
     def _capture(self, state, tensors, inputs, extra, key) -> _Graph:
         """Warm the step up eagerly on a side stream (the state restored in
         place after it), then capture it over copies of the inputs, which
-        become the graph's input slots."""
+        become the graph's input slots (utils/cuda_graphs.capture)."""
         device = tensors[0].device
         if self._step_t is None or self._step_t.device != device:
             self._step_t = torch.zeros((), dtype=torch.int64, device=device)
@@ -261,38 +249,39 @@ class ChunkRunner:
         _fresh_leaves(tensors)
         with torch.no_grad():
             saved = [t.clone() for t in tensors]
-        t0 = time.perf_counter()
-        _fresh_memory(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        try:
-            with torch.cuda.stream(side):
+        keys = []
+
+        def warmup():
+            nonlocal state
+            try:
                 for _ in range(WARMUP_STEPS):
                     self._step_t.fill_(host_step)
                     state.step = self._step_t
                     state, metrics = self._call(state, inputs, extra)
-        finally:
-            state.step = host_step
-            torch.cuda.current_stream(device).wait_stream(side)
-            with torch.no_grad():
-                for t, s in zip(tensors, saved):
-                    t.copy_(s)
-            del saved
-        keys = list(metrics)
-        del metrics
-        _fresh_memory(device)
-        graph = torch.cuda.CUDAGraph()
-        state.step = self._step_t
-        try:
-            with torch.cuda.graph(graph):
+                keys.extend(metrics)
+            finally:
+                state.step = host_step
+                with torch.no_grad():
+                    for t, s in zip(tensors, saved):
+                        t.copy_(s)
+                saved.clear()
+
+        def body():
+            nonlocal state
+            state.step = self._step_t
+            try:
                 state, metrics = self._call(state, inputs, extra)
                 row = _metric_row(metrics, keys)
-            if state.step is not self._step_t:
+                rebound = state.step is not self._step_t
+            finally:
+                state.step = host_step
+            if rebound:
                 raise RuntimeError('the step rebound state.step; it must '
                                    'advance it in place (state.step += 1)')
-        finally:
-            state.step = host_step
-        _fresh_memory(device)
+            return row
+
+        t0 = time.perf_counter()
+        graph, row = cuda_graphs.capture(device, warmup, body)
         self.capture_ms.append((time.perf_counter() - t0) * 1e3)
         return _Graph(graph, slots, row, keys, key)
 

@@ -48,7 +48,6 @@ from ctrlhair_tpu_torch.utils.image import mask_to_rgb, read_rgb
 from test_landmarks import synthetic_face
 from test_torch_convert import port_config
 from test_torch_editor import FIELDS
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 SEED = 3
 

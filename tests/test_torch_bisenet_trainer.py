@@ -53,7 +53,6 @@ from ctrlhair_tpu_torch.training.train_state import (
 from test_torch_trainers import (
     ONE_STEP, THREE_STEPS, assert_metrics, assert_trees, state_dict,
     to_torch)
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE, BATCH = 64, 2
 JCFG = JaxBiSeNetConfig(input_size=SIZE, blocks_per_stage=1)

@@ -20,7 +20,6 @@ from hypothesis import given, settings, strategies as st
 from ctrlhair_tpu.utils import checkpoint as jax_ckpt
 from ctrlhair_tpu_torch.utils import checkpoint as port_ckpt
 from ctrlhair_tpu_torch.utils import flax_msgpack
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ['bisenet', 'color_encoder', 'color_texture',

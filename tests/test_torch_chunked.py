@@ -41,7 +41,6 @@ from test_torch_shape_trainer import jax_draws
 from test_torch_trainers import (
     THREE_STEPS, assert_trees, port_cfg, state_dict, to_torch)
 from test_training import TINY_SHAPE
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 BATCH = 2
 BATCH_SEED, STEP_SEED = 2_000_000, 300

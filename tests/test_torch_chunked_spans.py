@@ -16,7 +16,6 @@ from ctrlhair_tpu_torch.training.chunked import (
 from ctrlhair_tpu_torch.training.shape_trainer import (
     ShapeTrainer, synthetic_batch)
 from ctrlhair_tpu_torch.utils import profiling
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = ShapeConfig(img_size=32, layer_num=3, max_channel=32,
                   hidden_in_channel=8, d_hidden_in_channel=8, face_dim=32,

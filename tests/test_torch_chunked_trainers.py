@@ -83,7 +83,6 @@ from test_torch_trainers import (
     assert_trees_noise_exempt, check_predictor_states, ct_batch, jax_draws,
     jax_dropout_masks, port_cfg, predictor_batch, predictor_cfgs,
     shadowed_layers, state_dict, to_torch)
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 import torch_parallel_ranks as ranks
 
 BATCH_SEED, STEP_SEED = 2_000_000, 300

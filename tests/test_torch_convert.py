@@ -16,19 +16,6 @@ from ctrlhair_tpu_torch.models.layers import TorchConv, TorchConvTranspose
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 
 
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """Every test module of the port runs torch on one CPU thread (each
-    module imports this fixture).  The suite runs six pytest workers at
-    once: torch's own pool of one thread a core in each oversubscribes the
-    cores, and its parallel regions then wait on descheduled threads (six
-    port test modules run at once took 3 to 6 times longer than with one
-    thread each).  The previous count comes back after the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 FAMILIES = ['sean', 'bisenet', 'shape', 'ct_gen', 'ct_dis', 'rgb_pred',
             'curliness_pred']
 

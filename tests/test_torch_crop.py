@@ -33,7 +33,6 @@ from ctrlhair_tpu_torch.utils.image import read_png, read_rgb, write_rgb
 from test_landmarks import synthetic_face
 from test_torch_convert import port_config
 from test_torch_landmark_net import upscale
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 SAMPLES = ['color_sweep', 'input', 'parsed_mask', 'regen_mask',
            'texture_samples', 'transfer_color_texture', 'transfer_matrix',

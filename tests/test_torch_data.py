@@ -19,7 +19,6 @@ from ctrlhair_tpu_torch.config import ColorTextureConfig
 from ctrlhair_tpu_torch.constants import HAIR_IDX, HAT_IDX
 from ctrlhair_tpu_torch.data import catalog
 from ctrlhair_tpu_torch.data.color_texture_dataset import ColorTextureDataset
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 STYLE = 16
 

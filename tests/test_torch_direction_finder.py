@@ -35,8 +35,7 @@ from ctrlhair_tpu_torch.pipeline.backend import Backend
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.utils.image import read_png, write_png
 from test_torch_backend import images_agree, sample_photos
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 HAIR_BIAS = 0.75
 TEXTURE_SEED, SHAPE_SEED = 1, 0

@@ -24,8 +24,7 @@ from ctrlhair_tpu_torch.pipeline import editor as port_editor
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.pipeline.latent import Latent
 from conftest import tiny_pipeline_cfg
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 FIELDS = [f.name for f in dataclasses.fields(Latent)]
 

@@ -32,7 +32,6 @@ from ctrlhair_tpu_torch.pipeline import find_directions as port_tool
 from ctrlhair_tpu_torch.pipeline.backend import Backend, repo_path
 from ctrlhair_tpu_torch.utils.image import read_png, read_rgb, write_png
 from test_torch_backend import images_agree
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_crop import without_cv2
 from test_torch_direction_finder import editors  # noqa: F401 (fixture)
 

@@ -19,7 +19,6 @@ from ctrlhair_tpu.utils.image import read_rgb as jax_read_rgb
 from ctrlhair_tpu_torch.utils.image import (
     decode_png, decode_rgb, read_png, read_rgb)
 from ctrlhair_tpu_torch.utils.jpeg import decode_jpeg
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))

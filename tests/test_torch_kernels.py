@@ -22,7 +22,6 @@ from ctrlhair_tpu_torch.ops import raster_pallas as rp
 from ctrlhair_tpu_torch.ops import warp as tw
 from ctrlhair_tpu_torch.ops.landmarks import canonical_template_81
 from ctrlhair_tpu_torch.ops.poisson import blend_system, decode_solution
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 
 # ------------------------------------------------------------ cluster plan

@@ -20,7 +20,6 @@ from ctrlhair_tpu_torch.ops import landmarks as tl
 from ctrlhair_tpu_torch.ops.resize import resize_bilinear_nhwc
 from ctrlhair_tpu_torch.pipeline.backend import repo_path
 from ctrlhair_tpu_torch.utils.image import read_rgb
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

@@ -51,7 +51,6 @@ from ctrlhair_tpu_torch.utils import draw
 from test_torch_trainers import (
     ONE_STEP, THREE_STEPS, assert_metrics, assert_trees,
     assert_trees_noise_exempt, state_dict, to_torch)
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 PIXELS_EQUAL = 0.995
 JCFG = JaxLandmarkNetConfig(input_size=128, base_channels=8, hidden_dim=32)

@@ -11,7 +11,6 @@ from ctrlhair_tpu.constants import PARSING_LABEL_LIST
 from ctrlhair_tpu.ops import landmarks as jl
 from ctrlhair_tpu_torch.ops import landmarks as tl
 from test_landmarks import synthetic_face
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 L = {name: i for i, name in enumerate(PARSING_LABEL_LIST)}
 

@@ -26,8 +26,7 @@ from ctrlhair_tpu_torch.convert.load import (family_dirs, load_native_params,
                                              load_trained_root)
 from ctrlhair_tpu_torch.pipeline.backend import Backend, repo_path
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 ALL = {'ct_gen', 'ct_dis', 'shape', 'bisenet', 'sean', 'rgb_pred',
        'curliness_pred'}

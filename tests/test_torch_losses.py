@@ -14,7 +14,6 @@ from ctrlhair_tpu.config import ColorTextureConfig as JaxCTConfig
 from ctrlhair_tpu.training import losses as JL
 from ctrlhair_tpu_torch.config import ColorTextureConfig
 from ctrlhair_tpu_torch.training import losses as L
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-6
 GAN_TYPES = ['lsgan', 'nsgan', 'wgan_gp', 'hinge', 'hinge2']

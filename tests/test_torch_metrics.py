@@ -17,7 +17,6 @@ from ctrlhair_tpu.utils import image as jimage
 from ctrlhair_tpu.utils import metrics as jmetrics
 from ctrlhair_tpu_torch.utils import image as timage
 from ctrlhair_tpu_torch.utils import metrics, profiling
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

@@ -20,8 +20,7 @@ from ctrlhair_tpu.utils.masks import label_to_one_hot, split_hair_face
 from ctrlhair_tpu_torch.convert import from_flax
 from ctrlhair_tpu_torch.models.sean import SEAN
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 
 def T(a):

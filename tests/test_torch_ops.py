@@ -23,7 +23,6 @@ from ctrlhair_tpu_torch.ops.poisson_pallas import (
     MASKED_CG, masked_cg, masked_cg_cuda, masked_cg_plain,
     poisson_blend_fused)
 from ctrlhair_tpu_torch.utils import colorspace, masks
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

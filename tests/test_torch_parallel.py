@@ -44,7 +44,7 @@ from ctrlhair_tpu_torch.pipeline.latent import Latent
 from ctrlhair_tpu_torch.training import losses as L
 from ctrlhair_tpu_torch.training.color_texture_trainer import (
     ColorTextureTrainer)
-from test_torch_convert import one_torch_thread, port_config  # noqa: F401
+from test_torch_convert import port_config
 import torch_parallel_ranks as ranks
 
 WORLDS = (2, 4)

@@ -32,7 +32,6 @@ import torch
 from ctrlhair_tpu import config as jcfg_mod
 from ctrlhair_tpu.training.sean_trainer import SEANTrainer as JaxSEANTrainer
 from ctrlhair_tpu_torch.training.sean_trainer import SEANTrainer
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_parallel_trainers import (
     N, check_nan_and_resume, check_step, jax_sharded_step, numpy_draws,
     run_families, template, with_nan)

@@ -54,7 +54,6 @@ from ctrlhair_tpu_torch.convert import to_flax
 from ctrlhair_tpu_torch.models.layers import init_parameters_
 from ctrlhair_tpu_torch.models.sean import SEAN
 from ctrlhair_tpu_torch.parallel.dryrun import dryrun_multichip, run_on_ranks
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_shape_trainer import jax_draws as shape_jax_draws
 from test_torch_trainers import (
     TINY_CT, TINY_SEAN, assert_metrics, assert_trees,

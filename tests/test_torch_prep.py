@@ -35,8 +35,7 @@ from ctrlhair_tpu_torch.pipeline.backend import repo_path
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.utils.image import read_png, read_rgb, write_rgb
 from test_landmarks import synthetic_face
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 
 @pytest.fixture(scope='module')

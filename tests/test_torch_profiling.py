@@ -5,7 +5,8 @@
 # own root; past the bound records are dropped and counted, also from many
 # threads at once; and under torch.profiler the spans record without
 # recording(), on the clock of the profiler's own host events.  A tiny
-# editor with drawn weights, on the CPU.
+# editor with drawn weights, on the CPU.  Also the suite's rule that torch
+# runs on one thread in every test process (conftest.py at the root).
 import sys
 import threading
 
@@ -19,7 +20,6 @@ from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.pipeline.latent import Latent
 from ctrlhair_tpu_torch.ui import app
 from ctrlhair_tpu_torch.utils import profiling
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 STAGES = {'render', 'decode_mask', 'blend'}
 
@@ -250,3 +250,10 @@ def test_spans_share_the_profilers_host_clock():
     with profiling.span('after'):
         pass
     assert all(r.name != 'after' for r in profiling.records())
+
+
+def test_torch_runs_on_one_thread_in_every_test_process():
+    """conftest.py at the root pins torch to one CPU thread in each pytest
+    process, xdist's workers included, so that the suite's six workers do
+    not oversubscribe the cores and no test module has to ask for it."""
+    assert torch.get_num_threads() == 1

@@ -216,8 +216,9 @@ def test_cpu_editor_never_captures():
 def test_threads_share_the_cache_without_a_lost_update(editor):
     """Eight threads render at three batch sizes with a short switch
     interval: each gets the eager render of its own inputs, each signature
-    is captured once, the bound holds.  One math thread throughout, so
-    that the eager references sum in the same order."""
+    is captured once, the bound holds.  Torch runs on one thread in every
+    test process (conftest.py at the root), so that the eager references
+    sum in the same order."""
     import sys
     import threading
     errors = []
@@ -232,8 +233,7 @@ def test_threads_share_the_cache_without_a_lost_update(editor):
         except Exception as e:                   # noqa: BLE001 - reported
             errors.append(e)
 
-    old, old_threads = sys.getswitchinterval(), torch.get_num_threads()
-    torch.set_num_threads(1)
+    old = sys.getswitchinterval()
     try:
         editor._render_graphs.enabled = False
         cases = {(n, seed): render(editor, n, seed)[0]
@@ -248,7 +248,6 @@ def test_threads_share_the_cache_without_a_lost_update(editor):
             t.join(timeout=300)
     finally:
         sys.setswitchinterval(old)
-        torch.set_num_threads(old_threads)
     assert not any(t.is_alive() for t in threads)
     assert errors == []
     graphs = editor._render_graphs

@@ -52,7 +52,6 @@ from ctrlhair_tpu_torch.utils import checkpoint as ckpt
 from test_torch_trainers import (
     ONE_STEP, THREE_STEPS, assert_metrics, assert_trees,
     assert_trees_noise_exempt, port_cfg, state_dict)
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = JaxSEANConfig(crop_size=32, ngf=2, zencoder_ngf=2, style_dim=8,
                      num_up_layers=4, num_middle_blocks=1,

@@ -25,7 +25,6 @@ from ctrlhair_tpu_torch.data import shape_dataset as sd
 from ctrlhair_tpu_torch.data.catalog import DataCatalog
 from ctrlhair_tpu_torch.ops import landmarks as plm
 from ctrlhair_tpu_torch.ops import warp
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 LABELS_EQUAL = 0.999
 SIZE = 128

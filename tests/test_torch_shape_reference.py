@@ -21,7 +21,6 @@ from ctrlhair_tpu_torch.config import ShapeConfig
 from ctrlhair_tpu_torch.models.layers import set_compute_dtype
 from ctrlhair_tpu_torch.training.chunked import ChunkRunner
 from ctrlhair_tpu_torch.training.shape_trainer import ShapeTrainer
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = ShapeConfig(img_size=32, layer_num=3, max_channel=32, face_dim=64)
 PARTS = (('gen.', 'gen'), ('dis.', 'dis'), ('dis_noise.', 'dis_noise'))

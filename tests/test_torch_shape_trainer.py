@@ -39,7 +39,6 @@ from test_torch_trainers import (
     ONE_STEP, THREE_STEPS, assert_metrics, assert_trees,
     assert_trees_noise_exempt, port_cfg, state_dict, to_torch)
 from test_training import TINY_SHAPE
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 OPTIONS = dataclasses.replace(
     TINY_SHAPE, kl_free_bits=0.25, lambda_geo=30.0, lambda_info=1.0,

@@ -47,7 +47,6 @@ from ctrlhair_tpu_torch.parallel import mesh as pmesh
 from ctrlhair_tpu_torch.parallel.dryrun import dryrun_multichip
 from ctrlhair_tpu_torch.training.loop import run_training
 from ctrlhair_tpu_torch.utils.checkpoint import load_checkpoint
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_parallel_trainers import (
     CT, NOISE_SHARE_MAX, ONE_STEP, SHAPE, check_nan_and_resume, check_step,
     ct_spec, run_families, shape_spec)

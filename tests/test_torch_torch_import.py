@@ -25,8 +25,7 @@ from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from test_convert import _fake_ct_gen_sd, _fake_mlp_sd, _fake_shape_gen_sd
 from test_convert_sean import _fake_sean_sd
 from ctrlhair_tpu_torch.constants import HAIR_IDX as HAIR
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 
 def assert_same_tree(got, ref):

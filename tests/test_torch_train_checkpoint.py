@@ -29,7 +29,6 @@ from ctrlhair_tpu_torch.utils import flax_msgpack
 from test_torch_trainers import (
     TINY_CT, assert_trees, port_cfg, predictor_batch, predictor_cfgs,
     to_torch)
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 
 def jax_tree(state):

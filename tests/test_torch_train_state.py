@@ -19,7 +19,6 @@ from ctrlhair_tpu_torch.convert import to_flax
 from ctrlhair_tpu_torch.models.layers import MLP, init_parameters_
 from ctrlhair_tpu_torch.training.train_state import (
     ModelOpt, adam, grads_finite, safe_apply_updates)
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 
 def leaves(tree):

@@ -46,7 +46,6 @@ from ctrlhair_tpu_torch.models.sean import SEAN
 from ctrlhair_tpu_torch.training.color_texture_trainer import (
     ColorTextureTrainer, synthetic_batch)
 from ctrlhair_tpu_torch.training.predictor_trainer import PredictorTrainer
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 TINY_CT = jcfg_mod.ColorTextureConfig(style_dim=64, g_hidden_dim=32,
                                       d_hidden_dim=32)

@@ -28,8 +28,7 @@ from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.ui import app, demo, web
 from ctrlhair_tpu_torch.utils.image import decode_png, read_rgb, write_rgb
 from test_torch_backend import images_agree, sample_photos
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 SEED = 3
 TOL = 1e-4

@@ -18,8 +18,7 @@ from ctrlhair_tpu_torch.convert import from_flax
 from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.training import validation as tval
 from ctrlhair_tpu_torch.utils.image import read_rgb
-from test_torch_convert import (  # noqa: F401 (autouse)
-    one_torch_thread, port_config)
+from test_torch_convert import port_config
 
 
 @pytest.fixture(scope='module')

@@ -19,7 +19,6 @@ from ctrlhair_tpu_torch.pipeline.editor import HairEditor
 from ctrlhair_tpu_torch.pipeline.latent import Latent
 from ctrlhair_tpu_torch.ui.web import WebEditor
 from test_torch_backend import sample_photos
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_convert import port_config
 
 STAGES = ('output', 'output_refresh', 'decode_mask', 'parse',

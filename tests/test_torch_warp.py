@@ -24,7 +24,6 @@ from ctrlhair_tpu.ops.raster_pallas import rasterize_uv_pallas
 from ctrlhair_tpu_torch import native
 from ctrlhair_tpu_torch.ops import raster_pallas as rp
 from ctrlhair_tpu_torch.ops import warp as tw
-from test_torch_convert import one_torch_thread  # noqa: F401 (autouse)
 
 
 def five_point_mesh(size, shift, use_arap=False, mod=tw):
