@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from ctrlhair_tpu_torch.parallel.mesh import (
     global_sum, sharded_params, tp_copy, tp_gather, tp_local)
+from ctrlhair_tpu_torch.utils.profiling import span
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -120,9 +121,83 @@ class Conv(_ColumnParallel, nn.Conv2d):
     def forward(self, x):
         cd = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(cd)
-        return self._column_parallel(
-            lambda x, w, b: F.conv2d(x, w, b, self.stride, self.padding),
-            x.to(cd), self.weight.to(cd), bias)
+        return self._column_parallel(self._conv, x.to(cd),
+                                     self.weight.to(cd), bias)
+
+    def _conv(self, x, w, b):
+        """F.conv2d, or conv_split over the halves that split_axis names
+        (a tensor-parallel slice is judged by its own shape)."""
+        cudnn = torch.backends.cudnn
+        axis = split_axis(x.shape, w.shape, self.stride, x.dtype,
+                          x.is_cuda and cudnn.is_acceptable(x),
+                          cudnn.allow_tf32)
+        if axis is None:
+            return F.conv2d(x, w, b, self.stride, self.padding)
+        return conv_split(x, w, b, self.stride, self.padding, axis)
+
+
+# The float32 3x3 stride-1 convs whose forward or data gradient cuDNN's
+# heuristics put on its FFT engines (complex GEMMs over 32x32 tiles) on an
+# H100 (cuDNN 9.22, TF32 off), by (channels in, channels out, height,
+# width) of the input: the channels whose halves keep the forward and both
+# gradients off them, 'out' (the halves' outputs concatenated) or 'in'
+# (summed), and the batches, of 1, 2, 4, 8 and 16 measured, at which the
+# halves took less time than the whole.  At a batch of 4 SEAN's up_2.conv_0
+# took 271 to 391 ms in its forward alone, its halves 0.97 to 0.98 ms; the
+# other listed convs' three passes took 1.0 to 2.7 times their halves'.
+# The classes' edges follow no simple law of the sizes (256 to 255 channels
+# at 128x128 take no FFT, 256 to 192 do, and the halves of neither stay off
+# it; 96x96 does at a batch of 4, not of 2), so the rule is this list of
+# what was measured (PERF.md §6).
+FFT_SHAPES = {
+    (256, 128, 128, 128): ('out', 2, 16),     # forward
+    (256, 128, 96, 96): ('out', 4, 16),       # forward
+    (256, 128, 64, 64): ('out', 2, 16),       # the rest: data gradient
+    (128, 128, 128, 128): ('out', 2, 8),
+    (32, 18, 256, 256): ('out', 4, 4),
+    (1024, 512, 32, 32): ('in', 4, 16),
+    (256, 512, 32, 32): ('in', 4, 8),
+    (256, 256, 64, 64): ('in', 1, 4),
+    (128, 256, 128, 128): ('in', 2, 4),
+    (128, 128, 256, 256): ('in', 1, 4),
+    (128, 64, 256, 256): ('in', 4, 4),
+}
+
+
+def split_axis(x_shape, w_shape, stride, dtype: torch.dtype, on_cudnn: bool,
+               tf32: bool) -> Optional[str]:
+    """'out' or 'in' for a conv that FFT_SHAPES lists at its batch (float32,
+    TF32 off, 3x3, stride 1, on cuDNN), else None."""
+    if not on_cudnn or dtype != torch.float32 or tf32:
+        return None
+    if tuple(w_shape[2:]) != (3, 3) or tuple(stride) != (1, 1):
+        return None
+    n, cin, h, w = x_shape
+    listed = FFT_SHAPES.get((cin, w_shape[0], h, w))
+    if listed is None or not listed[1] <= n <= listed[2]:
+        return None
+    return listed[0]
+
+
+def conv_split(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+               stride, padding, axis: str) -> torch.Tensor:
+    """F.conv2d as two convs over halves of the output channels
+    (axis 'out', the outputs concatenated) or of the input channels ('in',
+    the outputs summed, the bias added once).  Autograd takes each half's
+    data and weight gradient; the halves' sums are the whole conv's sums
+    in another order.  Opens the span `conv_split` (n, cin, cout, hw,
+    parts)."""
+    n, cin, h, wd = x.shape
+    cout = w.shape[0]
+    with span('conv_split', n=n, cin=cin, cout=cout, hw=h * wd, parts=2):
+        if axis == 'out':
+            k = cout // 2
+            return torch.cat([
+                F.conv2d(x, w[s], None if b is None else b[s], stride,
+                         padding) for s in (slice(0, k), slice(k, cout))], 1)
+        k = cin // 2
+        return (F.conv2d(x[:, :k], w[:, :k], b, stride, padding)
+                + F.conv2d(x[:, k:], w[:, k:], None, stride, padding))
 
 
 class ConvTranspose(_ColumnParallel, nn.ConvTranspose2d):

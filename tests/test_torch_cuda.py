@@ -1176,6 +1176,121 @@ def test_style_conv_weight_gradient_on_card(card):
     assert not [k for k in names if 'cf32' in k or 'fft2d' in k.lower()]
 
 
+class _ConvSplitState:
+    """A ChunkRunner state: a Conv and its output and gradients last taken."""
+
+    def __init__(self, conv, like):
+        self.step = 0
+        self.conv = conv
+        self.out = [torch.zeros_like(t) for t in like]
+
+    def tensors(self):
+        return self.out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,cin,cout,s,axis,deterministic', [
+    (4, 256, 128, 128, 'out', False),   # up_2.conv_0: its forward took FFT
+    (4, 1024, 512, 32, 'in', True)])    # up_0.conv_0: its data gradient did
+def test_conv_split_at_sean_widths_on_card(card, n, cin, cout, s, axis,
+                                           deterministic):
+    """A float32 SEAN conv through Conv (TF32 off): routed to conv_split
+    over the listed halves, one `conv_split` span a call, its forward, data
+    gradient and weight gradient within 1e-5 of float64, no cuDNN FFT
+    kernel (cf32 GEMM or fft2d) in forward or backward and both under 30
+    ms (cuDNN's FFT forward alone took 271 to 391 ms at up_2.conv_0's
+    shape); then bit-identical over two runs and equal inside ChunkRunner's
+    capture and replay and eagerly, no span at a replay.  The data
+    gradients of up_0.conv_0's halves over its input channels take an
+    algorithm of cuDNN's whose bits do not repeat by default (neither did
+    up_2.conv_0's whole data gradient on an H100), so their bits are held
+    with cuDNN's deterministic algorithms."""
+    from torch.profiler import ProfilerActivity, profile
+    from ctrlhair_tpu_torch.models.layers import Conv, split_axis
+    from ctrlhair_tpu_torch.training.chunked import ChunkRunner
+    from ctrlhair_tpu_torch.utils import profiling
+    conv = Conv(cin, cout, 3, 1, 1).to(card)
+    conv.reset_parameters(torch.Generator(device=card).manual_seed(22))
+    with torch.no_grad():
+        conv.bias.uniform_(-1, 1)
+
+    def batch(step):
+        # nonnegative inputs and output gradients: the weight gradient is
+        # a sum of n*s*s products without cancellation, so the bar holds
+        # the arithmetic, not the data's conditioning
+        g = torch.Generator(device=card).manual_seed(200 + step)
+        return {'x': torch.rand((n, cin, s, s), generator=g, device=card),
+                'go': torch.rand((n, cout, s, s), generator=g, device=card)}
+
+    def passes(b):
+        x = b['x'].detach().requires_grad_(True)
+        y = conv(x)
+        gx, gw, gb = torch.autograd.grad(y, (x, conv.weight, conv.bias),
+                                         b['go'])
+        return y.detach(), gx, gw, gb
+
+    b0 = batch(0)
+    assert split_axis(b0['x'].shape, conv.weight.shape, conv.stride,
+                      torch.float32, torch.backends.cudnn.is_acceptable(
+                          b0['x']), False) == axis
+    profiling.clear()
+    with profiling.recording():
+        got = passes(b0)
+    spans = [r.attrs for r in profiling.records() if r.name == 'conv_split']
+    profiling.clear()
+    assert spans == [{'n': n, 'cin': cin, 'cout': cout, 'hw': s * s,
+                      'parts': 2}]
+
+    xd = b0['x'].double().requires_grad_(True)
+    wd, bd = (p.detach().double().requires_grad_(True)
+              for p in (conv.weight, conv.bias))
+    yd = torch.nn.functional.conv2d(xd, wd, bd, 1, 1)
+    ref = (yd.detach(),) + torch.autograd.grad(yd, (xd, wd, bd),
+                                               b0['go'].double())
+    for name, a, r in zip(('forward', 'data', 'weight', 'bias'), got, ref):
+        scale = float(r.abs().max())
+        assert float((a.double() - r).abs().max()) <= 1e-5 * scale, name
+
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        passes(b0)
+        e1.record()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names
+    assert not [k for k in names if 'cf32' in k or 'fft2d' in k.lower()]
+    assert e0.elapsed_time(e1) < 30.0
+
+    def step(state, b):
+        for slot, t in zip(state.out, passes(b)):
+            slot.copy_(t)
+        state.step += 1
+        return state, {'sum': state.out[0].sum()}
+
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        got = passes(b0)
+        for a, c in zip(got, passes(b0)):
+            assert torch.equal(a, c)
+        state = _ConvSplitState(conv, got)
+        runner = ChunkRunner(step, batch)
+        for k in range(3):
+            with profiling.recording():
+                state, _, _ = runner.run(state, k, k + 1, chunk_size=1)
+            routed = [r for r in profiling.records()
+                      if r.name == 'conv_split']
+            profiling.clear()
+            assert bool(routed) == (k == 0)
+            for a, c in zip(state.out, passes(batch(k))):
+                assert torch.equal(a, c)
+        assert runner.captures == 1
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 # ------------------------------------------------ the render's CUDA graphs
 @pytest.fixture(scope='module')
 def full_editor():
